@@ -1,0 +1,656 @@
+#!/usr/bin/env python3
+"""Smoke run of fastdet_tpu_torch on one CUDA card (an NVIDIA H100).
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Drives the port's main path end to end and checks every kernel on it:
+
+  0. device: card name, power limit, torch and nvcc versions;
+  1. build: deletes the port's build directory, then builds the CUDA
+     ingest kernels (one nvcc call, sm_90a) and the host JPEG decoder
+     (one c++ call) at once, and prints nvcc's -Xptxas -v lines;
+  2. kernel B1 (sparse coefficient reconstruction) against its plain
+     PyTorch version on the card, on std (v6) and dense (v5) rows of
+     every testdata/*.jpg, five synthetic edge classes and a zeroed row
+     (max |diff| must be 0), then CUDA-event timings at B = 8 and 16;
+  3. kernel B2 (4:2:0 plane ingest) likewise on the fixtures' planes;
+  4. engine: the server's models (build_services, the server CLI's
+     entry) on weights/detect80_full.npz in the default bf16 mode; one
+     batch of the seven fixtures must hit the sparse, sparse_dense and
+     planes tiers and launch both kernels; an f32 engine on the card is
+     held against the same engine on the CPU on three fixtures;
+  5. over the wire: a DetectionServer on 127.0.0.1 answers the seven
+     fixtures sent by the port's DetectClient; each response must match
+     the engine's own records. Launch counts are zeroed just before and
+     read just after this run;
+
+then prints the card line, the kernels line and, last, the result line.
+It exits nonzero with no result line when no CUDA card is present, when
+run outside the repository, or when any phase fails. A watchdog ends a
+hung run with every thread's stack.
+"""
+
+from __future__ import annotations
+
+import argparse
+import faulthandler
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+WATCHDOG_S = 600           # whole run, build included
+THR = 0.3                  # detection threshold of every request
+IOU_MIN = 0.999            # box agreement between two runs of one frame
+H100_BYTES_PER_S = 3.35e12  # HBM3 rate of an H100 SXM (NVIDIA data sheet)
+REPO = os.path.dirname(os.path.abspath(__file__))
+WEIGHTS = os.path.join(REPO, "weights", "detect80_full.npz")
+FIXTURES = ("scene1.jpg", "scene2.jpg", "scene3.jpg", "adv_night.jpg",
+            "adv_noise.jpg", "adv_texture.jpg", "adv_ui.jpg")
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def say(*args) -> None:
+    print(*args, flush=True)
+
+
+def expect(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# --------------------------------------------------------------------------
+# Phase 0 and 1
+# --------------------------------------------------------------------------
+
+def phase_device(torch):
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=10)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        f"{name}, power limit not read (nvidia-smi rc {smi.returncode})"
+    from fastdet_tpu_torch.ops import _build
+
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, timeout=10)
+    say(f"[0] device: {name}; count {torch.cuda.device_count()}; "
+        f"torch {torch.__version__} (CUDA {torch.version.cuda}); "
+        f"nvcc {nvcc.stdout.strip().splitlines()[-1]}")
+    say(f"[0] nvidia-smi: {card}")
+    return name, card
+
+
+def phase_build():
+    from fastdet_tpu_torch.ops import _build
+
+    t0 = time.time()
+    _build.clean()
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception as e:  # reported below; the phase fails
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(fn,), daemon=True)
+               for fn in (_build.build_kernels, _build.build_fd_jpeg)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    expect(not any(t.is_alive() for t in threads), "build timed out")
+    if errors:
+        raise SmokeFailure(f"build failed: {errors[0]}")
+    for line in _build.BUILD_LOG.get("fd_kernels", "").splitlines():
+        if "ptxas" in line:
+            say(f"[1] {line.strip()}")
+    _build.kernels()  # load + bind
+    say(f"[1] built fd_kernels and fd_jpeg in {time.time() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# Phase 2: kernel B1
+# --------------------------------------------------------------------------
+
+def _fixture_bytes():
+    import pathlib
+
+    return {n: (pathlib.Path(REPO) / "testdata" / n).read_bytes()
+            for n in FIXTURES}
+
+
+def _stage_row(data: bytes, caps):
+    """One frame's packed sparse row at ``caps`` (a truncated row when
+    the frame overflows them) and whether it fit."""
+    import numpy as np
+
+    from fastdet_tpu_torch.runtime import engine as eng_mod
+    from fastdet_tpu_torch.runtime import native_jpeg
+
+    row = np.zeros((eng_mod.sparse_row_bytes(caps),), np.uint8)
+    views = eng_mod.sparse_row_views(row, caps)
+    decode = (native_jpeg.decode_sparse6_into if caps.fmt == 6
+              else native_jpeg.decode_sparse5_into)
+    try:
+        decode(data, *views[:-1])
+        fit = True
+    except native_jpeg.SparseCapacityExceeded:
+        fit = False
+    return row, fit
+
+
+def _b1_inputs(torch, rows, caps, dev):
+    """(offs, maskstream, vals, esc8, esc16, sentinel) on ``dev`` for a
+    stack of packed rows of one format: the engine's own unpack."""
+    import numpy as np
+
+    from fastdet_tpu_torch.ops import jpeg_device as jd
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.runtime import engine as eng_mod
+
+    packed = torch.from_numpy(np.stack(rows)).to(dev)
+    bo = [0] + [int(v) for v in eng_mod.sparse_offsets(caps)]
+    f = [packed[:, bo[i]:bo[i + 1]].contiguous() for i in range(len(bo) - 1)]
+    if caps.fmt == 6:
+        vals, sentinel = jd.unpack_3bit(f[3]), -4
+    else:
+        vals, sentinel = jd.unpack_nibbles(f[3]), -8
+    esc8 = f[4].view(torch.int8)
+    esc16 = f[5].view(torch.int16)
+    offs = si.stream_offsets(f[0], f[1], vals, esc8, caps.nb, sentinel)
+    return offs, f[1], vals.contiguous(), esc8, esc16, sentinel
+
+
+def _edge_case(np, rng, nb, esc1_p, esc2_p, max_nnz, nib_cap):
+    """A synthetic v5 row (plen, maskstream, nib, esc8, esc16) with the
+    given escape rates: the case classes no camera frame reaches (dense
+    escapes, int16 escapes out to +-32767, near-full blocks)."""
+    mcap, e8cap, e16cap = 8 * nb, 64 * nb, 32 * nb
+    plen = np.zeros(((nb + 1) // 2,), np.uint8)
+    ms = np.zeros((mcap,), np.uint8)
+    nib = np.zeros((nib_cap,), np.uint8)
+    esc8 = np.zeros((e8cap,), np.int8)
+    esc16 = np.zeros((e16cap,), np.int16)
+    nac = ne8 = ne16 = nmask = 0
+    for n in range(nb):
+        nnz = rng.randint(0, max_nnz + 1)
+        zzmask = 0
+        b8 = b16 = 0
+        for j in np.sort(rng.choice(63, nnz, replace=False) + 1):
+            zzmask |= 1 << int(j)
+            r = rng.rand()
+            if r < esc2_p and b16 < 16 and b8 < 32:
+                v = -8
+                esc8[ne8] = -128
+                esc16[ne16] = rng.choice([1, -1]) * rng.choice(
+                    [32767, rng.randint(300, 32767)])
+                ne8, ne16, b8, b16 = ne8 + 1, ne16 + 1, b8 + 1, b16 + 1
+            elif r < esc1_p and b8 < 32:
+                v = -8
+                esc8[ne8] = rng.randint(8, 128) * rng.choice([-1, 1])
+                ne8, b8 = ne8 + 1, b8 + 1
+            else:
+                v = rng.randint(-7, 8)
+            if nac // 2 < nib_cap:
+                nib[nac >> 1] |= (v & 0xF) << (4 * (nac & 1))
+            nac += 1
+        pl = (zzmask.bit_length() + 7) // 8
+        plen[n >> 1] |= pl << (4 * (n & 1))
+        ms[nmask:nmask + pl] = np.frombuffer(
+            zzmask.to_bytes(8, "little")[:pl], np.uint8)
+        nmask += pl
+    return plen, ms, nib, esc8, esc16
+
+
+def _time_ms(torch, fn, iters=20):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(torch, fn, kernel, iters=20):
+    """Mean device time of ``kernel`` per call of ``fn`` from a
+    torch.profiler trace of the card, or None when the trace holds no
+    device time for it (the profiler's CUPTI tracing is optional here)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    except (RuntimeError, AssertionError) as e:
+        say(f"    (profiler unavailable: {e})")
+        return None
+    total = sum(getattr(ev, "device_time_total", 0.0)
+                for ev in prof.key_averages() if kernel in ev.key)
+    return total / iters / 1e3 if total > 0 else None
+
+
+def _where_time_goes(torch, fn):
+    """Device time by kernel over one call of ``fn``: the top entries and
+    the card's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    except (RuntimeError, AssertionError) as e:
+        say(f"[4] profile not measured (profiler unavailable: {e})")
+        return
+    evs = [ev for ev in prof.key_averages()
+           if getattr(ev, "device_time_total", 0.0) > 0
+           and getattr(ev, "device_type", None) is not None
+           and "CUDA" in str(ev.device_type)]
+    busy_ms = sum(ev.device_time_total for ev in evs) / 1e3
+    say(f"[4] profile of one batch: device busy {busy_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms wall ({100 * busy_ms / wall_ms:.1f} %), "
+        f"{sum(ev.count for ev in evs)} kernel launches")
+    for ev in sorted(evs, key=lambda e: -e.device_time_total)[:8]:
+        say(f"[4]   {ev.device_time_total / 1e3:9.3f} ms  x{ev.count:<5d} "
+            f"{ev.key[:90]}")
+
+
+def phase_b1(torch, fixtures):
+    import numpy as np
+
+    from fastdet_tpu_torch.ops import jpeg_device as jd
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.runtime import engine as eng_mod
+
+    dev = torch.device("cuda", 0)
+    budgets = eng_mod.sparse_budgets()
+    worst = 0
+    cases = 0
+    std_rows = {}
+    for tier in ("std", "dense"):
+        caps = eng_mod.sparse_caps(416, (2, 2), budgets["fmt"][tier],
+                                   budgets[tier])
+        rows, fits = [], []
+        for name, data in fixtures.items():
+            row, fit = _stage_row(data, caps)
+            rows.append(row)
+            fits.append(fit)
+        rows.append(np.zeros_like(rows[0]))     # zeroed row
+        if tier == "std":
+            std_rows = {"caps": caps, "rows": [r for r, f in
+                                               zip(rows, fits) if f]}
+        args = _b1_inputs(torch, rows, caps, dev)
+        got = si.reconstruct(*args)
+        want = si.reconstruct_plain(*args)
+        torch.cuda.synchronize()
+        diff = int((got - want).abs().max().item())
+        worst = max(worst, diff)
+        cases += len(rows)
+        say(f"[2] B1 {tier} (v{caps.fmt}): {len(rows)} rows "
+            f"({sum(fits)} fit, {len(fits) - sum(fits)} truncated, 1 "
+            f"zeroed): max |kernel - plain| = {diff}")
+    rng = np.random.RandomState(13)
+    nb = 4056
+    for name, kw in (
+        ("no-esc small-nnz", dict(esc1_p=0.0, esc2_p=0.0, max_nnz=8)),
+        ("no-esc", dict(esc1_p=0.0, esc2_p=0.0, max_nnz=19)),
+        ("esc8", dict(esc1_p=0.25, esc2_p=0.0, max_nnz=19)),
+        ("esc16 +-32k", dict(esc1_p=0.25, esc2_p=0.08, max_nnz=19)),
+        ("dense nnz", dict(esc1_p=0.25, esc2_p=0.08, max_nnz=60)),
+    ):
+        plen, ms, nib, e8, e16 = _edge_case(np, rng, nb, nib_cap=32 * nb,
+                                            **kw)
+        t = [torch.from_numpy(a[None]).to(dev)
+             for a in (plen, ms, nib, e8, e16)]
+        vals = jd.unpack_nibbles(t[2]).contiguous()
+        offs = si.stream_offsets(t[0], t[1], vals, t[3], nb, -8)
+        args = (offs, t[1], vals, t[3], t[4], -8)
+        diff = int((si.reconstruct(*args) - si.reconstruct_plain(*args))
+                   .abs().max().item())
+        worst = max(worst, diff)
+        cases += 1
+        say(f"[2] B1 edge case {name}: max |kernel - plain| = {diff}")
+    expect(worst == 0, f"B1 disagrees with its plain version: {worst}")
+
+    caps = std_rows["caps"]
+    timing = {}
+    for b in (8, 16):
+        rows = [std_rows["rows"][i % len(std_rows["rows"])]
+                for i in range(b)]
+        args = _b1_inputs(torch, rows, caps, dev)
+        timing[b] = (
+            _time_ms(torch, lambda: si.reconstruct(*args)),
+            _time_ms(torch, lambda: si.reconstruct_plain(*args), iters=5),
+            # rows in + int32 coefficients out
+            (b * eng_mod.sparse_row_bytes(caps) + b * caps.nb * 64 * 4)
+            / H100_BYTES_PER_S * 1e3)
+        say(f"[2] B1 B={b}: kernel {timing[b][0]:.4f} ms, plain "
+            f"{timing[b][1]:.4f} ms, bound {timing[b][2]:.4f} ms (bytes)")
+        if b == 8:
+            dev_ms = _device_ms(torch, lambda: si.reconstruct(*args),
+                                "sparse_reconstruct_kernel")
+            say(f"[2] B1 B=8: device time per launch (profiler) {dev_ms} ms")
+    return {"max_abs_err": worst, "cases": cases, "timing": timing,
+            "device_ms": dev_ms}
+
+
+# --------------------------------------------------------------------------
+# Phase 3: kernel B2
+# --------------------------------------------------------------------------
+
+def phase_b2(torch, fixtures):
+    import numpy as np
+
+    from fastdet_tpu_torch.ops import plane_ingest
+    from fastdet_tpu_torch.runtime import native_jpeg
+
+    dev = torch.device("cuda", 0)
+    planes = []
+    for name, data in fixtures.items():
+        y = np.empty((416, 416), np.uint8)
+        cb = np.empty((208, 208), np.uint8)
+        cr = np.empty((208, 208), np.uint8)
+        native_jpeg.decode_planes_into(data, y, cb, cr)
+        planes.append((y, cb, cr))
+
+    def stack(idx):
+        return [torch.from_numpy(np.stack([planes[i][k] for i in idx]))
+                .to(dev) for k in range(3)]
+
+    y, cb, cr = stack(range(len(planes)))
+    diff = float((plane_ingest.plane_ingest_batch(y, cb, cr)
+                  - plane_ingest.plane_ingest_plain(y, cb, cr))
+                 .abs().max().item())
+    say(f"[3] B2 on {len(planes)} fixtures' planes: max |kernel - plain| "
+        f"= {diff}")
+    expect(diff == 0.0, f"B2 disagrees with its plain version: {diff}")
+    timing = {}
+    for b in (8, 16):
+        y, cb, cr = stack([i % len(planes) for i in range(b)])
+        timing[b] = (
+            _time_ms(torch, lambda: plane_ingest.plane_ingest_batch(
+                y, cb, cr)),
+            _time_ms(torch, lambda: plane_ingest.plane_ingest_plain(
+                y, cb, cr), iters=5),
+            # uint8 planes in + f32 NHWC out
+            b * (416 * 416 * 3 // 2 + 416 * 416 * 3 * 4)
+            / H100_BYTES_PER_S * 1e3)
+        say(f"[3] B2 B={b}: kernel {timing[b][0]:.4f} ms, plain "
+            f"{timing[b][1]:.4f} ms, bound {timing[b][2]:.4f} ms (bytes)")
+        if b == 8:
+            dev_ms = _device_ms(torch, lambda: plane_ingest.plane_ingest_batch(
+                y, cb, cr), "plane_ingest_kernel")
+            say(f"[3] B2 B=8: device time per launch (profiler) {dev_ms} ms")
+    return {"max_abs_err": diff, "timing": timing, "device_ms": dev_ms}
+
+
+# --------------------------------------------------------------------------
+# Phase 4 and 5: engine and server
+# --------------------------------------------------------------------------
+
+def _records(blob: bytes):
+    """Wire record bytes -> [(klass, conf u8, x, y, w, h)]."""
+    import struct
+
+    return [struct.unpack(">BBhhhh", blob[i:i + 10])
+            for i in range(0, len(blob), 10)]
+
+
+def _iou(a, b) -> float:
+    ax, ay, aw, ah = a
+    bx, by, bw, bh = b
+    iw = max(0.0, min(ax + aw, bx + bw) - max(ax, bx))
+    ih = max(0.0, min(ay + ah, by + bh) - max(ay, by))
+    inter = iw * ih
+    union = aw * ah + bw * bh - inter
+    return 1.0 if union <= 0 else inter / union
+
+
+def _same_records(a, b, what):
+    """Two runs' results for one frame: same count and classes, boxes
+    at IoU >= IOU_MIN. ``a``/``b`` are (klass, conf, x, y, w, h) lists."""
+    expect(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} detections")
+    for ra, rb in zip(a, b):
+        expect(ra[0] == rb[0], f"{what}: class {ra[0]} vs {rb[0]}")
+        iou = _iou(ra[2:], rb[2:])
+        expect(iou >= IOU_MIN, f"{what}: IoU {iou:.5f} < {IOU_MIN}")
+
+
+def phase_engine(torch, fixtures, services):
+    from fastdet_tpu_torch.models import weights
+    from fastdet_tpu_torch.ops import plane_ingest
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.runtime.engine import DetectionEngine
+
+    eng = services["full"].engine
+    names = list(fixtures)
+    jpegs = [fixtures[n] for n in names]
+    si.LAUNCHES = plane_ingest.LAUNCHES = 0
+    t0 = time.time()
+    res = eng.detect_async_sparse(jpegs, [THR] * len(jpegs))
+    expect(res is not None and not res.unresolved,
+           "fixtures fell off the native ingest")
+    wire = eng.fetch_wire(res, len(jpegs))
+    dt = time.time() - t0
+    counts = dict(res.counts)
+    if "planes" not in counts:
+        sub = eng.detect_async_planes(jpegs[:1], [THR])
+        eng.fetch_wire(sub, 1)
+        counts["planes(direct)"] = 1
+    launches = (si.LAUNCHES, plane_ingest.LAUNCHES)
+    say(f"[4] engine bf16 batch of {len(jpegs)}: tiers {counts}, "
+        f"{[len(w) // 10 for w in wire]} detections, {dt * 1e3:.1f} ms "
+        f"host wall; launches B1 {launches[0]}, B2 {launches[1]}")
+    for tier in ("sparse", "sparse_dense"):
+        expect(tier in counts, f"no fixture rode the {tier} tier")
+    expect(launches[0] > 0 and launches[1] > 0,
+           f"a kernel was not launched on the engine path: {launches}")
+    for n, w in zip(names, wire):
+        recs = _records(w)
+        expect(all(0 < r[0] <= 80 and r[4] > 0 and r[5] > 0 for r in recs),
+               f"{n}: malformed records {recs[:3]}")
+    engine_records = {n: _records(w) for n, w in zip(names, wire)}
+    eng._tier_hint.clear()
+    _where_time_goes(torch, lambda: eng.fetch_wire(eng.detect_async_sparse(
+        jpegs, [THR] * len(jpegs)), len(jpegs)))
+    eng._tier_hint.clear()
+
+    # f32 on the card against f32 on the CPU (true f32 on both: TF32 off)
+    spec, params = weights.load_model(WEIGHTS)
+    cuda32 = DetectionEngine(spec, params, mode="f32", buckets=(1,))
+    cpu32 = DetectionEngine(spec, params, mode="f32", buckets=(1,),
+                            device="cpu")
+    try:
+        for n in names[:2] + names[4:5]:
+            got = []
+            for e in (cuda32, cpu32):
+                e._tier_hint.clear()
+                r = e.detect_async_sparse([fixtures[n]], [THR])
+                got.append(e.fetch(r, 1)[0])
+            _same_records(got[0], got[1], f"{n} f32 card vs CPU")
+            say(f"[4] {n}: f32 card == f32 CPU ({len(got[0])} detections, "
+                f"first classes {[g[0] for g in got[0]][:8]})")
+    finally:
+        cuda32.close()
+        cpu32.close()
+    return engine_records
+
+
+def phase_server(torch, fixtures, services, engine_records):
+    import asyncio
+
+    from fastdet_tpu_torch.ops import plane_ingest
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.runtime.client import DetectClient
+    from fastdet_tpu_torch.runtime.server import DetectionServer
+
+    server = DetectionServer(services, port=0, host="127.0.0.1")
+    state = {}
+    ready = threading.Event()
+
+    def serve():
+        loop = asyncio.new_event_loop()
+        state["loop"] = loop
+        ev = asyncio.Event()
+
+        async def main():
+            task = asyncio.ensure_future(server.serve(ev))
+            state["task"] = task
+            await ev.wait()
+            ready.set()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+
+        try:
+            loop.run_until_complete(main())
+            loop.run_until_complete(loop.shutdown_default_executor())
+        finally:
+            loop.close()
+
+    thread = threading.Thread(target=serve, daemon=True, name="smoke-server")
+    si.LAUNCHES = plane_ingest.LAUNCHES = 0
+    thread.start()
+    expect(ready.wait(30), "server did not start")
+    client = DetectClient("127.0.0.1", server.bound_port, path="full")
+    names = list(fixtures)
+    t0 = time.time()
+    try:
+        client.open(timeout=10)
+        for i, n in enumerate(names):
+            client.request(i + 1, THR, fixtures[n])
+        replies = {n: client.wait_response(i + 1, timeout=30)
+                   for i, n in enumerate(names)}
+    finally:
+        client.close()
+        dt = time.time() - t0
+        loop = state.get("loop")
+        if loop is not None:
+            loop.call_soon_threadsafe(server.request_shutdown)
+            loop.call_soon_threadsafe(state["task"].cancel)
+        thread.join(30)
+    launches = {"B1": si.LAUNCHES, "B2": plane_ingest.LAUNCHES}
+    expect(not thread.is_alive(), "server thread did not stop")
+    for n in names:
+        _, recs = replies[n]
+        _same_records(recs, engine_records[n], f"{n} server vs engine")
+    svc = services["full"]
+    say(f"[5] server: {len(names)} requests answered in {dt * 1e3:.1f} ms; "
+        f"every response matches the engine; ingest {svc.ingest}, "
+        f"batches {svc.batch_hist}; launches {launches}")
+    expect(launches["B1"] > 0 and launches["B2"] > 0,
+           f"a kernel was not launched on the served path: {launches}")
+    return launches
+
+
+def kernels_line(b1, b2, launches):
+    def entry(name, src, replaces, res, n):
+        ms, plain_ms, bound_ms = res["timing"][8]
+        return {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": res["max_abs_err"],
+            "max_abs_diff": res["max_abs_err"],
+            "ms": ms, "kernel_ms": ms, "device_ms": res["device_ms"],
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "batch": 8,
+            "ms_b16": res["timing"][16][0],
+            "bound_ms_b16": res["timing"][16][2],
+        }
+
+    return {"kernels": [
+        entry("B1 sparse_ingest", "fastdet_tpu_torch/csrc/sparse_ingest.cu",
+              "fastdet_tpu/ops/pallas/sparse_ingest.py:452", b1,
+              launches["B1"]),
+        entry("B2 plane_ingest", "fastdet_tpu_torch/csrc/plane_ingest.cu",
+              "fastdet_tpu/ops/pallas/plane_ingest.py:91", b2,
+              launches["B2"]),
+    ]}
+
+
+def main(argv) -> int:
+    argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    ).parse_args(argv[1:])
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+
+    if not os.path.isdir(os.path.join(REPO, "fastdet_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(fastdet_tpu_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs a CUDA card", file=sys.stderr)
+        return 2
+
+    t_start = time.time()
+    name, card = phase_device(torch)
+    phase_build()
+    fixtures = _fixture_bytes()
+    b1 = phase_b1(torch, fixtures)
+    b2 = phase_b2(torch, fixtures)
+
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    t0 = time.time()
+    services = build_services([f"full:80:{WEIGHTS}"], buckets=(8,))
+    say(f"[4] build_services(full:80, bf16, bucket 8) with warmup: "
+        f"{time.time() - t0:.1f} s")
+    try:
+        engine_records = phase_engine(torch, fixtures, services)
+        launches = phase_server(torch, fixtures, services, engine_records)
+    finally:
+        for svc in services.values():
+            svc.engine.close()
+    alive = [t.name for t in threading.enumerate()
+             if t is not threading.main_thread() and not t.daemon]
+    expect(not alive, f"threads left running: {alive}")
+    say(f"[done] {time.time() - t_start:.1f} s")
+    say(card)
+    say(json.dumps(kernels_line(b1, b2, launches)))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        rc = main(sys.argv)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        rc = 1
+    except Exception:
+        import traceback
+
+        traceback.print_exc()
+        rc = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # every thread this run started is joined or daemonic; os._exit makes
+    # sure no interpreter-exit hook can hold the process past its result
+    os._exit(rc)
