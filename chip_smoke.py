@@ -7,8 +7,9 @@ Drives the port's main path end to end and checks every kernel on it:
 
   0. device: card name, power limit, torch and nvcc versions;
   1. build: deletes the port's build directory, then builds the CUDA
-     ingest kernels (one nvcc call, sm_90a) and the host JPEG decoder
-     (one c++ call) at once, and prints nvcc's -Xptxas -v lines;
+     kernels (one nvcc call, sm_90a) and the host JPEG decoder
+     (one c++ call) at once, and prints nvcc's -Xptxas -v lines (the
+     CUDA kernels: B1, B2, D1, D2);
   2. kernel B1 (sparse coefficient reconstruction) against its plain
      PyTorch version on the card, on std (v6) and dense (v5) rows of
      every testdata/*.jpg, five synthetic edge classes and a zeroed row
@@ -23,6 +24,19 @@ Drives the port's main path end to end and checks every kernel on it:
      fixtures sent by the port's DetectClient; each response must match
      the engine's own records. Launch counts are zeroed just before and
      read just after this run;
+  6. kernels D1/D2 (B1's stages one by one): the kernel-debug tool
+     (fastdet_tpu_torch.tools.debug_ingest) on its three cases, every
+     stage equal to its plain version, launch counts zeroed just before
+     and read just after; then at B = 8, NB = 4096 (bt = 128) D1 and D2
+     against their plain versions, D1's nat against B1's output on the
+     same rows, and their timings;
+  7. int8: the server's int8 models (build_services, mode int8,
+     calibrated on testdata/scene*.jpg): one batch of the seven fixtures
+     through the sparse, dense and planes tiers, the same over loopback;
+     on one fixture the int32 sums of every int8 conv through
+     torch._int_mm equal the 4-bit split route, and the card's int8
+     engine equals a CPU int8 engine with the same scales; int8 against
+     bf16 (matched boxes, batch wall, device time) is printed;
 
 then prints the card line, the kernels line and, last, the result line.
 It exits nonzero with no result line when no CUDA card is present, when
@@ -244,9 +258,10 @@ def _device_ms(torch, fn, kernel, iters=20):
     return total / iters / 1e3 if total > 0 else None
 
 
-def _where_time_goes(torch, fn):
-    """Device time by kernel over one call of ``fn``: the top entries and
-    the card's busy share of the wall time."""
+def _where_time_goes(torch, fn, tag="[4]"):
+    """Device time by kernel over one call of ``fn``: prints the top
+    entries and the card's busy share of the wall time; returns (busy
+    ms, wall ms) or None when the profiler is unavailable."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -258,19 +273,20 @@ def _where_time_goes(torch, fn):
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     except (RuntimeError, AssertionError) as e:
-        say(f"[4] profile not measured (profiler unavailable: {e})")
-        return
+        say(f"{tag} profile not measured (profiler unavailable: {e})")
+        return None
     evs = [ev for ev in prof.key_averages()
            if getattr(ev, "device_time_total", 0.0) > 0
            and getattr(ev, "device_type", None) is not None
            and "CUDA" in str(ev.device_type)]
     busy_ms = sum(ev.device_time_total for ev in evs) / 1e3
-    say(f"[4] profile of one batch: device busy {busy_ms:.3f} ms of "
+    say(f"{tag} profile of one batch: device busy {busy_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall ({100 * busy_ms / wall_ms:.1f} %), "
         f"{sum(ev.count for ev in evs)} kernel launches")
     for ev in sorted(evs, key=lambda e: -e.device_time_total)[:8]:
-        say(f"[4]   {ev.device_time_total / 1e3:9.3f} ms  x{ev.count:<5d} "
+        say(f"{tag}   {ev.device_time_total / 1e3:9.3f} ms  x{ev.count:<5d} "
             f"{ev.key[:90]}")
+    return busy_ms, wall_ms
 
 
 def phase_b1(torch, fixtures):
@@ -403,6 +419,80 @@ def phase_b2(torch, fixtures):
 
 
 # --------------------------------------------------------------------------
+# Phase 6: kernels D1 and D2 (B1's stages, the kernel-debug path)
+# --------------------------------------------------------------------------
+
+def phase_stages(torch):
+    import numpy as np
+
+    from fastdet_tpu_torch.ops import ingest_stages as st
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.tools import debug_ingest
+
+    dev = torch.device("cuda", 0)
+    st.LAUNCHES.update(D1=0, D2=0)
+    with torch.inference_mode():
+        cases = debug_ingest.run(dev, prefix="[6] ")
+    torch.cuda.synchronize()
+    launches = dict(st.LAUNCHES)
+    say(f"[6] debug tool: {len(cases)} cases, launches {launches}")
+    expect(all(c["ok"] for c in cases),
+           f"a D1/D2 stage disagrees with its plain version: {cases}")
+    expect(launches["D1"] > 0 and launches["D2"] > 0,
+           f"a kernel was not launched on the debug path: {launches}")
+    worst = max(c["max_abs_err"] for c in cases)
+
+    # the engine's scale: B = 8 frames of NB = 4096 blocks, bt = 128
+    b, nb = 8, 4096
+    rows = st.build_case(np.random.RandomState(13), b, nb, 0.0, 0.0,
+                         MCAP=8 * nb, NCAPB=10 * nb)
+    plen, ms, _, nib, esc8, esc16, _ = (torch.from_numpy(a).to(dev)
+                                        for a in rows)
+    s = st.prepare_streams(plen, ms, nib, nb)
+    args = (s.ms32, s.vals32, s.moffx, s.probe)
+    expect(s.bt == 128, f"bt {s.bt} at NB={nb}")
+    got = st.stages(*args, s.bt)
+    d1_diff = max(int((g - w).abs().max().item())
+                  for g, w in zip(got, st.stages_plain(*args, s.bt)))
+    d2_diff = int((st.nat_gated(*args, s.eoff1, s.bt)
+                   - st.nat_gated_plain(*args, s.eoff1, s.bt))
+                  .abs().max().item())
+    offs = si.stream_offsets(plen, ms, s.vals, esc8, nb, -8)
+    b1_diff = int((got.nat - si.reconstruct(offs, ms, s.vals, esc8, esc16,
+                                            -8)).abs().max().item())
+    say(f"[6] B={b} NB={nb} bt={s.bt}: max |D1 - plain| = {d1_diff}, "
+        f"max |D2 - plain| = {d2_diff}, max |D1 nat - B1| = {b1_diff}")
+    expect(d1_diff == 0 and d2_diff == 0 and b1_diff == 0,
+           f"D1/D2 at B={b}: {d1_diff}, {d2_diff}, vs B1 {b1_diff}")
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    ins = nbytes(args)
+    res = {}
+    for key, fn, plain, kernel, out_bytes in (
+        ("D1", lambda: st.stages(*args, s.bt),
+         lambda: st.stages_plain(*args, s.bt), "ingest_stages_kernel",
+         nbytes(got)),
+        ("D2", lambda: st.nat_gated(*args, s.eoff1, s.bt),
+         lambda: st.nat_gated_plain(*args, s.eoff1, s.bt),
+         "nat_gated_kernel", nbytes([got.nat])),
+    ):
+        in_bytes = ins + (nbytes([s.eoff1]) if key == "D2" else 0)
+        timing = (_time_ms(torch, fn), _time_ms(torch, plain, iters=5),
+                  (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3)
+        dev_ms = _device_ms(torch, fn, kernel)
+        say(f"[6] {key} B={b}: kernel {timing[0]:.4f} ms, device "
+            f"{dev_ms} ms (profiler), plain {timing[1]:.4f} ms, bound "
+            f"{timing[2]:.4f} ms (bytes: {in_bytes} in, {out_bytes} out)")
+        res[key] = {"max_abs_err": max(worst, d1_diff if key == "D1"
+                                       else d2_diff),
+                    "timing": {8: timing}, "device_ms": dev_ms}
+    res["launches"] = launches
+    return res
+
+
+# --------------------------------------------------------------------------
 # Phase 4 and 5: engine and server
 # --------------------------------------------------------------------------
 
@@ -494,7 +584,7 @@ def phase_engine(torch, fixtures, services):
     return engine_records
 
 
-def phase_server(torch, fixtures, services, engine_records):
+def phase_server(torch, fixtures, services, engine_records, tag="[5]"):
     import asyncio
 
     from fastdet_tpu_torch.ops import plane_ingest
@@ -554,7 +644,7 @@ def phase_server(torch, fixtures, services, engine_records):
         _, recs = replies[n]
         _same_records(recs, engine_records[n], f"{n} server vs engine")
     svc = services["full"]
-    say(f"[5] server: {len(names)} requests answered in {dt * 1e3:.1f} ms; "
+    say(f"{tag} server: {len(names)} requests answered in {dt * 1e3:.1f} ms; "
         f"every response matches the engine; ingest {svc.ingest}, "
         f"batches {svc.batch_hist}; launches {launches}")
     expect(launches["B1"] > 0 and launches["B2"] > 0,
@@ -562,10 +652,153 @@ def phase_server(torch, fixtures, services, engine_records):
     return launches
 
 
-def kernels_line(b1, b2, launches):
+# --------------------------------------------------------------------------
+# Phase 7: int8 serving
+# --------------------------------------------------------------------------
+
+def _batch_walls(eng, jpegs, reps=3):
+    """Host wall ms of ``reps`` engine batches of ``jpegs`` (tier memory
+    cleared before each, so every batch routes as the first did)."""
+    walls = []
+    for _ in range(reps):
+        eng._tier_hint.clear()
+        t0 = time.perf_counter()
+        eng.fetch_wire(eng.detect_async_sparse(jpegs, [THR] * len(jpegs)),
+                       len(jpegs))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    eng._tier_hint.clear()
+    return walls
+
+
+def _agreement(a, b):
+    """Boxes of ``a`` matched by a box of ``b`` of the same class at IoU
+    >= 0.5, and the count of ``a``."""
+    hit = 0
+    for ra in a:
+        hit += any(rb[0] == ra[0] and _iou(ra[2:], rb[2:]) >= 0.5
+                   for rb in b)
+    return hit, len(a)
+
+
+def phase_int8(torch, fixtures, bf16_services, bf16_records):
+    import numpy as np
+
+    from fastdet_tpu_torch.models import quantize, yolov3
+    from fastdet_tpu_torch.models import weights
+    from fastdet_tpu_torch.ops import plane_ingest
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
+    from fastdet_tpu_torch.runtime.engine import DetectionEngine
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    scenes = sorted(n for n in fixtures if n.startswith("scene"))
+    calib = np.stack([jpeg_mod.decode_rgb(fixtures[n]) for n in scenes])
+    t0 = time.time()
+    services = build_services([f"full:80:{WEIGHTS}"], mode="int8",
+                              buckets=(8,), calibration_images=calib)
+    eng = services["full"].engine
+    say(f"[7] build_services(full:80, int8, bucket 8) with warmup: "
+        f"{time.time() - t0:.1f} s; calibration on {len(scenes)} scenes "
+        f"{eng.calibration_s * 1e3:.1f} ms")
+    try:
+        expect(isinstance(eng.net, quantize.Int8Net), "not an int8 net")
+        expect(isinstance(eng.spec.layers[0], yolov3.SpaceToDepth),
+               "the int8 engine did not rewrite its stem")
+        names = list(fixtures)
+        jpegs = [fixtures[n] for n in names]
+        si.LAUNCHES = plane_ingest.LAUNCHES = 0
+        eng._tier_hint.clear()
+        t0 = time.time()
+        res = eng.detect_async_sparse(jpegs, [THR] * len(jpegs))
+        expect(res is not None and not res.unresolved,
+               "fixtures fell off the native ingest")
+        wire = eng.fetch_wire(res, len(jpegs))
+        dt = time.time() - t0
+        launches = (si.LAUNCHES, plane_ingest.LAUNCHES)
+        counts = dict(res.counts)
+        say(f"[7] engine int8 batch of {len(jpegs)}: tiers {counts}, "
+            f"{[len(w) // 10 for w in wire]} detections, {dt * 1e3:.1f} ms "
+            f"host wall; launches B1 {launches[0]}, B2 {launches[1]}")
+        for tier in ("sparse", "sparse_dense", "planes"):
+            expect(tier in counts, f"int8: no fixture rode the {tier} tier")
+        expect(launches[0] > 0 and launches[1] > 0,
+               f"a kernel was not launched on the int8 path: {launches}")
+        records = {n: _records(w) for n, w in zip(names, wire)}
+        for n, recs in records.items():
+            expect(all(0 < r[0] <= 80 and r[4] > 0 and r[5] > 0
+                       for r in recs), f"{n}: malformed records {recs[:3]}")
+        eng._tier_hint.clear()
+        phase_server(torch, fixtures, services, records, tag="[7]")
+
+        # every int8 conv of one fixture: _int_mm == 4-bit split
+        net = eng.net
+        img = jpeg_mod.decode_rgb(fixtures[scenes[0]])
+        x = torch.from_numpy(img[None]).to(eng.device).float() * (1.0 / 255.0)
+        diffs = []
+        route = net.accumulate
+
+        def checking(xq, l):
+            got = route(xq, l)
+            want = quantize.conv_int8_split(xq, net.w_q[l.name], l.stride,
+                                            l.pad)
+            diffs.append(int((got - want).abs().max().item()))
+            return got
+
+        net.accumulate = checking
+        try:
+            with torch.inference_mode():
+                net(x)
+        finally:
+            del net.accumulate
+        torch.cuda.synchronize()
+        say(f"[7] {scenes[0]}: {len(diffs)} int8 convs, max |_int_mm - "
+            f"4-bit split| = {max(diffs)}")
+        expect(len(diffs) == len(net.w_q) and max(diffs) == 0,
+               f"_int_mm and the split route disagree: {diffs}")
+
+        # the card's int8 engine == a CPU int8 engine, same scales
+        spec, params = weights.load_model(WEIGHTS)
+        cpu8 = DetectionEngine(spec, params, mode="int8", buckets=(1,),
+                               device="cpu", act_scales=eng.act_scales)
+        try:
+            n = scenes[0]
+            got = []
+            for e in (eng, cpu8):
+                e._tier_hint.clear()
+                got.append(e.fetch(e.detect_async_sparse(
+                    [fixtures[n]], [THR]), 1)[0])
+            _same_records(got[0], got[1], f"{n} int8 card vs CPU")
+            say(f"[7] {n}: int8 card == int8 CPU ({len(got[0])} detections)")
+        finally:
+            cpu8.close()
+
+        # int8 against bf16 on the same batch (information, not gates)
+        hit = tot = 0
+        for n in names:
+            h, t = _agreement(bf16_records[n], records[n])
+            hit, tot = hit + h, tot + t
+        say(f"[7] int8 vs bf16: {hit} of {tot} bf16 boxes matched by an "
+            f"int8 box (same class, IoU >= 0.5)")
+        bf16 = bf16_services["full"].engine
+        walls = {"bf16": _batch_walls(bf16, jpegs),
+                 "int8": _batch_walls(eng, jpegs)}
+        for mode, w in walls.items():
+            say(f"[7] {mode} batch of {len(jpegs)}: host wall ms "
+                f"{[round(v, 3) for v in w]}")
+        for mode, e in (("bf16", bf16), ("int8", eng)):
+            _where_time_goes(torch, lambda: e.fetch_wire(
+                e.detect_async_sparse(jpegs, [THR] * len(jpegs)),
+                len(jpegs)), tag=f"[7] {mode}")
+            e._tier_hint.clear()
+    finally:
+        for svc in services.values():
+            svc.engine.close()
+
+
+def kernels_line(b1, b2, launches, d):
     def entry(name, src, replaces, res, n):
         ms, plain_ms, bound_ms = res["timing"][8]
-        return {
+        out = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
             "max_abs_err": res["max_abs_err"],
@@ -574,9 +807,11 @@ def kernels_line(b1, b2, launches):
             "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
             "batch": 8,
-            "ms_b16": res["timing"][16][0],
-            "bound_ms_b16": res["timing"][16][2],
         }
+        if 16 in res["timing"]:
+            out["ms_b16"] = res["timing"][16][0]
+            out["bound_ms_b16"] = res["timing"][16][2]
+        return out
 
     return {"kernels": [
         entry("B1 sparse_ingest", "fastdet_tpu_torch/csrc/sparse_ingest.cu",
@@ -585,6 +820,11 @@ def kernels_line(b1, b2, launches):
         entry("B2 plane_ingest", "fastdet_tpu_torch/csrc/plane_ingest.cu",
               "fastdet_tpu/ops/pallas/plane_ingest.py:91", b2,
               launches["B2"]),
+        entry("D1 ingest_stages", "fastdet_tpu_torch/csrc/ingest_stages.cu",
+              "tools/debug_kernel_tpu.py:133", d["D1"], d["launches"]["D1"]),
+        entry("D2 ingest_nat_gated",
+              "fastdet_tpu_torch/csrc/ingest_stages.cu",
+              "tools/debug_kernel_tpu.py:298", d["D2"], d["launches"]["D2"]),
     ]}
 
 
@@ -613,6 +853,7 @@ def main(argv) -> int:
     fixtures = _fixture_bytes()
     b1 = phase_b1(torch, fixtures)
     b2 = phase_b2(torch, fixtures)
+    stages = phase_stages(torch)
 
     from fastdet_tpu_torch.runtime.server import build_services
 
@@ -623,6 +864,7 @@ def main(argv) -> int:
     try:
         engine_records = phase_engine(torch, fixtures, services)
         launches = phase_server(torch, fixtures, services, engine_records)
+        phase_int8(torch, fixtures, services, engine_records)
     finally:
         for svc in services.values():
             svc.engine.close()
@@ -631,7 +873,7 @@ def main(argv) -> int:
     expect(not alive, f"threads left running: {alive}")
     say(f"[done] {time.time() - t_start:.1f} s")
     say(card)
-    say(json.dumps(kernels_line(b1, b2, launches)))
+    say(json.dumps(kernels_line(b1, b2, launches, stages)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

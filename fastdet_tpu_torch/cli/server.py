@@ -9,8 +9,10 @@ No positional args registers the DummyDetector at path 'detect'
 (server.py:359-360). ``-t interval`` (the reference's select timeout) is
 accepted for compatibility; the asyncio runtime needs no poll interval.
 ``weights`` accepts fastdet .npz / ``synthetic[:arch]`` (darknet
-``.weights`` import is not ported yet). Engines run on the CUDA card; ``-m
-int8`` is not ported yet and raises.
+``.weights`` import is not ported yet). Engines run on the CUDA card.
+``-m`` picks bf16 (the default), f32 or int8; int8 calibrates its
+activation scales at startup on the frames in FASTDET_CALIB_DIR, else on
+synthetic scenes.
 """
 
 from __future__ import annotations

@@ -29,25 +29,22 @@
 // escape ranks from two warp ballots per level, and each lane writing
 // its two int32 results straight to their natural positions (the 256-B
 // output row of a block is written by one warp, so the stores of a warp
-// land in the same two 128-B lines).
+// land in the same two 128-B lines). The window read, mask assembly,
+// ranks and placement are the device functions of ingest_common.cuh,
+// which the stage kernels D1/D2 (ingest_stages.cu) run and write out
+// step by step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "ingest_common.cuh"
 
-// ZZ[j] = natural-order position of the j-th zigzag coefficient
-__constant__ int kZigzag[64] = {
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
-};
+namespace {
 
 constexpr int kEW1 = 32;  // level-1 escapes per block (kMaxEsc8PerBlock)
 constexpr int kEW2 = 16;  // level-2 escapes per block (kMaxEsc16PerBlock)
 constexpr int kWarpsPerCta = 8;
-constexpr unsigned kFull = 0xffffffffu;
+using fd::kFull;
 
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 sparse_reconstruct_kernel(const int32_t* __restrict__ offs,   // (B, 4, NB+1)
@@ -70,32 +67,20 @@ sparse_reconstruct_kernel(const int32_t* __restrict__ offs,   // (B, 4, NB+1)
   const int e1off = o[2 * (nb + 1) + j], e1end = o[2 * (nb + 1) + j + 1];
   const int e2off = o[3 * (nb + 1) + j], e2end = o[3 * (nb + 1) + j + 1];
 
-  // mask prefix: lanes 0..7 load one byte each, then every lane gathers
-  // the two 32-bit mask words by shuffles
-  const int plen = min(max(mend - moff, 0), 8);
-  unsigned byte = 0;
-  if (lane < plen) {
-    const long mi = (long)moff + lane;
-    if (mi >= 0 && mi < mcap) byte = ms[(long)b * mcap + mi];
-  }
-  unsigned lo = 0, hi = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    lo |= __shfl_sync(kFull, byte, k) << (8 * k);
-    hi |= __shfl_sync(kFull, byte, k + 4) << (8 * k);
-  }
+  // mask prefix: lanes 0..7 load one byte each of the block's window (at
+  // most 8 bytes), then every lane gathers the two 32-bit mask words
+  unsigned lo, hi;
+  fd::mask_words(fd::window_at(ms + (long)b * mcap, mcap, moff,
+                               min(mend - moff, 8), lane),
+                 lo, hi);
   const unsigned below = (1u << lane) - 1u;  // lanes < this one
-  // zigzag position z0 = lane, z1 = lane + 32
-  const bool bit0 = (lo >> lane) & 1u;
-  const bool bit1 = (hi >> lane) & 1u;
-  const int rank0 = __popc(lo & below);
-  const int rank1 = __popc(lo) + __popc(hi & below);
+  const fd::LaneBits zb = fd::lane_bits(lo, hi, lane);
+  const bool bit0 = zb.bit0, bit1 = zb.bit1;
 
   const int nnz = vend - voff;
   const int32_t* vrow = vals + (long)b * nv;
-  int v0 = 0, v1 = 0;
-  if (bit0 && rank0 < nnz && (long)voff + rank0 < nv) v0 = vrow[voff + rank0];
-  if (bit1 && rank1 < nnz && (long)voff + rank1 < nv) v1 = vrow[voff + rank1];
+  int v0 = bit0 ? fd::window_at(vrow, nv, voff, nnz, zb.rank0) : 0;
+  int v1 = bit1 ? fd::window_at(vrow, nv, voff, nnz, zb.rank1) : 0;
 
   // level 1: value-stream sentinel -> esc8
   const bool f0 = bit0 && v0 == sentinel;
@@ -105,13 +90,10 @@ sparse_reconstruct_kernel(const int32_t* __restrict__ offs,   // (B, 4, NB+1)
   if (m0 | m1) {
     const int n1 = min(e1end - e1off, kEW1);
     const int8_t* erow = esc8 + (long)b * e8cap;
-    if (f0) {
-      const int r = __popc(m0 & below);
-      v0 = (r < n1 && (long)e1off + r < e8cap) ? (int)erow[e1off + r] : 0;
-    }
+    if (f0) v0 = fd::window_at(erow, e8cap, e1off, n1, __popc(m0 & below));
     if (f1) {
-      const int r = __popc(m0) + __popc(m1 & below);
-      v1 = (r < n1 && (long)e1off + r < e8cap) ? (int)erow[e1off + r] : 0;
+      v1 = fd::window_at(erow, e8cap, e1off, n1,
+                         __popc(m0) + __popc(m1 & below));
     }
     // level 2: esc8 sentinel -128 -> esc16
     const bool g0 = f0 && v0 == -128;
@@ -121,20 +103,15 @@ sparse_reconstruct_kernel(const int32_t* __restrict__ offs,   // (B, 4, NB+1)
     if (q0 | q1) {
       const int n2 = min(e2end - e2off, kEW2);
       const int16_t* frow = esc16 + (long)b * e16cap;
-      if (g0) {
-        const int r = __popc(q0 & below);
-        v0 = (r < n2 && (long)e2off + r < e16cap) ? (int)frow[e2off + r] : 0;
-      }
+      if (g0) v0 = fd::window_at(frow, e16cap, e2off, n2, __popc(q0 & below));
       if (g1) {
-        const int r = __popc(q0) + __popc(q1 & below);
-        v1 = (r < n2 && (long)e2off + r < e16cap) ? (int)frow[e2off + r] : 0;
+        v1 = fd::window_at(frow, e16cap, e2off, n2,
+                           __popc(q0) + __popc(q1 & below));
       }
     }
   }
 
-  int32_t* orow = out + g * 64;
-  orow[kZigzag[lane]] = v0;
-  orow[kZigzag[lane + 32]] = v1;
+  fd::store_natural(out + g * 64, lane, v0, v1);
 }
 
 }  // namespace

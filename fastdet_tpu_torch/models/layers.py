@@ -12,6 +12,8 @@ cuDNN prefers); the model's public functions stay NHWC
 - Batch norm is folded into the conv weight + bias for inference
   (:func:`fold_conv_bn`, numpy, identical to the JAX package's host
   fold).
+- :func:`space_to_depth` keeps the JAX package's phase-major channel
+  order on NCHW tensors in channels-last memory.
 """
 
 from __future__ import annotations
@@ -41,6 +43,31 @@ def conv_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         (t, bo), (le, r) = pad
         y = F.conv2d(F.pad(x, (le, r, t, bo)), w, b, stride=stride)
     return F.leaky_relu(y, LEAKY_SLOPE) if act else y
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``where(x >= 0, x, 0.1 * x)``, the JAX package's spelling (the int8
+    epilogue must match it bit for bit)."""
+    return torch.where(x >= 0, x, LEAKY_SLOPE * x)
+
+
+def space_to_depth(x: torch.Tensor, factor: int = 2,
+                   pad_channels: int = 0) -> torch.Tensor:
+    """NCHW (B, C, H, W) -> (B, f*f*C [+ pad zeros], H/f, W/f), returned
+    in channels-last memory; any dtype.
+
+    Phase-major channel order, as the JAX package's NHWC version: out
+    channel = p*(f*C) + q*C + c for row phase p and column phase q (the
+    value at row f*i + p, column f*j + q). ``pad_channels`` appends zero
+    channels."""
+    f = factor
+    b, c, h, w = x.shape
+    nhwc = x.permute(0, 2, 3, 1)                       # (B, H, W, C)
+    y = nhwc.reshape(b, h // f, f, w // f, f, c).permute(0, 1, 3, 2, 4, 5)
+    y = y.reshape(b, h // f, w // f, f * f * c)
+    if pad_channels:
+        y = F.pad(y, (0, pad_channels))
+    return y.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
 def fold_conv_bn(params: Params) -> Params:

@@ -90,6 +90,27 @@ def from_jax_params(spec: ModelSpec, params: Dict[str, Any]) -> Dict[str, Any]:
         for name, p in params.items()})
 
 
+def from_jax_qparams(spec: ModelSpec,
+                     qparams: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's int8 parameters from a JAX-package ``quantize_params``
+    tree (leaves as numpy arrays: int8 ``w_q``, f32 ``w_scale``, ``b``,
+    ``x_scale`` and ``y_scale``; ``w``/``b`` for the float head convs).
+
+    Leaves keep their dtypes and values, so given the same scales both
+    packages compute the same int8 network (models/quantize.Int8Net)."""
+    out: Dict[str, Any] = {}
+    for l in spec.conv_specs():
+        p = qparams[l.name]
+        if "w_q" not in p:
+            out[l.name] = {k: np.asarray(p[k], np.float32)
+                           for k in ("w", "b")}
+            continue
+        out[l.name] = {k: (np.asarray(v, np.int8) if k == "w_q"
+                           else np.asarray(v, np.float32))
+                       for k, v in p.items()}
+    return out
+
+
 def load_model(
     path: str, arch: Optional[str] = None, num_classes: int = 80
 ) -> Tuple[ModelSpec, Dict[str, Any]]:

@@ -55,9 +55,8 @@ class Conv:
     act: bool = True           # LeakyReLU(0.1) when True, linear when False
     name: str = ""             # filled in by _finalize
     # Explicit ((top, bottom), (left, right)) padding override; None =
-    # Darknet SAME ((k-1)//2 each side). The JAX package's space-to-depth
-    # stem rewrite sets it; the port keeps the field so specs compare
-    # equal field for field.
+    # Darknet SAME ((k-1)//2 each side). Set by the space-to-depth stem
+    # rewrite (models/s2d.py), whose 2x2 conv needs asymmetric pads.
     pad: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None
 
 
@@ -65,6 +64,18 @@ class Conv:
 class MaxPool:
     size: int = 2
     stride: int = 2
+
+
+@dataclass(frozen=True)
+class SpaceToDepth:
+    """(H, W, C) -> (H/f, W/f, f*f*C [+ pad_channels zeros]), phase-major
+    channel order (row phase, column phase, source channel). A pure
+    relayout, inserted by the inference-only stem rewrite (models/s2d.py)
+    in front of the rewritten first convolutions; value-preserving, so
+    int8 tensors pass through it unchanged. ``pad_channels`` appends
+    zero channels (the consumer conv's weights get matching zero rows)."""
+    factor: int = 2
+    pad_channels: int = 0
 
 
 @dataclass(frozen=True)
@@ -290,6 +301,8 @@ class YoloNet(nn.Module):
                 cur = layers.conv_block(cur, self.weights[l.name],
                                         self.biases[l.name], l.stride,
                                         l.act, l.pad)
+            elif isinstance(l, SpaceToDepth):
+                cur = layers.space_to_depth(cur, l.factor, l.pad_channels)
             elif isinstance(l, MaxPool):
                 cur = layers.maxpool2d(cur, l.size, l.stride)
             elif isinstance(l, Upsample):

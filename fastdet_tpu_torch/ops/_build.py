@@ -3,7 +3,7 @@
 Two shared libraries, each built at first use into a gitignored
 directory and loaded with ctypes:
 
-- the CUDA ingest kernels (``csrc/*.cu``): ONE ``nvcc`` call for
+- the CUDA kernels (``csrc/*.cu`` and their header): ONE ``nvcc`` call for
   ``sm_90a`` with a plain C interface — no PyTorch headers, so the build
   takes seconds and needs neither ninja nor ``torch.utils.cpp_extension``;
 - the host JPEG entropy decoder (``native/jpeg/fd_jpeg.cpp``): one
@@ -32,7 +32,8 @@ REPO_DIR = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 
-KERNEL_SOURCES = ("sparse_ingest.cu", "plane_ingest.cu")
+KERNEL_SOURCES = ("sparse_ingest.cu", "plane_ingest.cu", "ingest_stages.cu")
+KERNEL_HEADERS = ("ingest_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
@@ -67,15 +68,17 @@ def _digest(sources: Sequence[str], flags: Sequence[str]) -> str:
 
 
 def build_shared(name: str, compiler: List[str], sources: Sequence[str],
-                 flags: Sequence[str], timeout: float = 600.0) -> str:
+                 flags: Sequence[str], timeout: float = 600.0,
+                 headers: Sequence[str] = ()) -> str:
     """Compile ``sources`` into ``BUILD_DIR/lib<name>-<digest>.so`` unless
-    that file exists; returns its path."""
-    for path in sources:
+    that file exists; returns its path. The digest covers the sources,
+    the ``headers`` they include and the flags."""
+    for path in (*sources, *headers):
         if not os.path.exists(path):
             raise BuildError(f"{name}: missing source {path}")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR,
-                       f"lib{name}-{_digest(sources, flags)}.so")
+    out = os.path.join(
+        BUILD_DIR, f"lib{name}-{_digest([*sources, *headers], flags)}.so")
     if os.path.exists(out):
         return out
     with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
@@ -98,10 +101,11 @@ def build_shared(name: str, compiler: List[str], sources: Sequence[str],
 
 
 def build_kernels() -> str:
-    """The CUDA ingest kernels' shared library (nvcc, sm_90a)."""
+    """The CUDA kernels' shared library (nvcc, sm_90a)."""
     return build_shared(
         "fd_kernels", [nvcc_path()],
-        [os.path.join(CSRC_DIR, s) for s in KERNEL_SOURCES], NVCC_FLAGS)
+        [os.path.join(CSRC_DIR, s) for s in KERNEL_SOURCES], NVCC_FLAGS,
+        headers=[os.path.join(CSRC_DIR, h) for h in KERNEL_HEADERS])
 
 
 def build_fd_jpeg() -> str:
@@ -147,6 +151,17 @@ def _bind_kernels(lib):
         p, p, p, p,              # y, cb, cr, out
         i, i, i,                 # B, H, W
         ctypes.c_long, ctypes.c_long,  # batch strides of y, cb/cr
+        p]                       # stream
+    lib.fd_ingest_stages.restype = i
+    lib.fd_ingest_stages.argtypes = [
+        p, p, p, p,              # ms, vals, moffx, probe
+        p, p, p, p, p, p, p,     # mwin, win, seg, bits, rank, acc, nat
+        i, i, i, i, i,           # B, NB, bt, mask length, value length
+        p]                       # stream
+    lib.fd_ingest_nat_gated.restype = i
+    lib.fd_ingest_nat_gated.argtypes = [
+        p, p, p, p, p, p,        # ms, vals, moffx, probe, eoff1, out
+        i, i, i, i, i,           # B, NB, bt, mask length, value length
         p]                       # stream
     lib.fd_cuda_error_string.restype = ctypes.c_char_p
     lib.fd_cuda_error_string.argtypes = [i]

@@ -23,13 +23,18 @@ Engine properties kept from the JAX engine:
   copies the batch and runs the device program, and fetch()/fetch_wire()
   wait for it, so the serving loop decodes the next batch meanwhile.
 
-Left for later: the int8 mode (models/quantize.py), the space-to-depth
-stem rewrite (models/s2d.py), the coefficient path (_pipeline_coeffs),
-lazy background warmup and the multi-device dp mesh.
+- **Graph forms.** The space-to-depth stem rewrite (models/s2d.py) is
+  applied in every mode wherever the stem matches; ``-m int8`` calibrates
+  activation scales on the canonical graph first, then rewrites, then
+  quantizes (models/quantize.py), as the JAX engine does.
+
+Left for later: the coefficient path (_pipeline_coeffs), lazy background
+warmup and the multi-device dp mesh.
 """
 
 from __future__ import annotations
 
+import glob
 import logging
 import math
 import os
@@ -41,10 +46,11 @@ import numpy as np
 import torch
 
 from fastdet_tpu_torch import device as device_mod
-from fastdet_tpu_torch.models import weights
+from fastdet_tpu_torch.models import quantize, s2d, weights
 from fastdet_tpu_torch.models.yolov3 import ModelSpec, YoloNet
 from fastdet_tpu_torch.ops import jpeg_device, nms, plane_ingest, postprocess
 from fastdet_tpu_torch.ops import sparse_ingest
+from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
 from fastdet_tpu_torch.runtime import native_jpeg
 
 logger = logging.getLogger(__name__)
@@ -88,6 +94,7 @@ _THR_PAD_BYTES = np.frombuffer(np.float32(2.0).tobytes(), np.uint8)
 _COMPUTE_DTYPES = {
     "bf16": torch.bfloat16,
     "f32": torch.float32,
+    "int8": torch.float32,  # float boundaries stay f32; convs are int8
     # Reference -m values (the reference's ONNX Runtime providers) keep
     # being accepted and map onto the default mode.
     None: torch.bfloat16,
@@ -96,6 +103,55 @@ _COMPUTE_DTYPES = {
     "tensorrt": torch.bfloat16,
     "tpu": torch.bfloat16,
 }
+
+
+def _calibration_from_dir(size: int, n: int = 8) -> Optional[np.ndarray]:
+    """Activation-calibration frames from FASTDET_CALIB_DIR, if set.
+
+    Real frames from the target camera beat any synthetic default; the
+    serving CLI keeps the reference's flags, so this deployment input
+    rides an environment variable, as in the JAX engine. Files that fail
+    to decode or are not (size, size, 3) are skipped."""
+    d = os.environ.get("FASTDET_CALIB_DIR")
+    if not d:
+        return None
+    imgs: List[np.ndarray] = []
+    for p in sorted(glob.glob(os.path.join(d, "*"))):
+        try:
+            with open(p, "rb") as fp:
+                img = jpeg_mod.decode_rgb(fp.read())
+        except (OSError, ValueError):
+            continue
+        if img.shape == (size, size, 3):
+            imgs.append(img)
+        if len(imgs) >= n:
+            break
+    if not imgs:
+        logger.warning(
+            "FASTDET_CALIB_DIR=%s: no usable %dx%d images; falling back "
+            "to synthetic calibration scenes", d, size, size)
+        return None
+    logger.info("int8 calibration: %d frames from %s", len(imgs), d)
+    return np.stack(imgs)
+
+
+def _default_calibration_images(size: int, n: int = 8) -> np.ndarray:
+    """Smooth synthetic scenes for activation calibration when the caller
+    provides none (the JAX engine's, draw for draw; prefer real frames
+    from the target camera)."""
+    rng = np.random.RandomState(0)
+    out = np.zeros((n, size, size, 3), np.uint8)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(n):
+        img = np.stack([100 + 100 * yy, 90 + 110 * xx,
+                        80 + 90 * (1 - yy) * xx], -1)
+        for _ in range(4):
+            x0, y0 = rng.randint(0, size * 3 // 4, 2)
+            w, h = rng.randint(size // 8, size // 3, 2)
+            img[y0:y0 + h, x0:x0 + w] = rng.randint(0, 255, 3)
+        img += rng.randn(size, size, 3) * 8
+        out[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return out
 
 
 def sparse_budgets() -> Dict[str, Any]:
@@ -233,16 +289,18 @@ class DetectionEngine:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         folded: bool = False,
         device="cuda",
+        calibration_images: Optional[np.ndarray] = None,
+        act_scales: Optional[Dict[str, Dict[str, float]]] = None,
     ):
-        if mode == "int8":
-            raise NotImplementedError(
-                "mode 'int8' (models/quantize.py) is not yet ported to "
-                "fastdet_tpu_torch; use bf16 or f32")
+        """``calibration_images`` (N, H, W, 3) uint8 are the int8 mode's
+        calibration frames (else FASTDET_CALIB_DIR, else synthetic
+        scenes); ``act_scales`` are the scales of an earlier calibration
+        of the same model ({conv: {"x", "y"}}, :attr:`act_scales`), used
+        instead of calibrating."""
         if mode not in _COMPUTE_DTYPES:
             raise ValueError(f"unknown mode {mode!r}")
         self.device = device_mod.resolve(device)
         device_mod.strict_fp32()
-        self.spec = spec
         self.mode = mode
         self.compute_dtype = _COMPUTE_DTYPES[mode]
         self.max_candidates = max_candidates
@@ -253,8 +311,37 @@ class DetectionEngine:
         self._sparse_fmt = self._sparse_budgets["fmt"]
         folded_params = params if folded else weights.fold_params(spec,
                                                                   params)
-        self.net = YoloNet(spec, folded_params, dtype=self.compute_dtype,
-                           device=self.device).eval()
+        #: int8: the activation scales and the calibration's wall seconds
+        #: (0.0 when ``act_scales`` were given)
+        self.act_scales = act_scales
+        self.calibration_s = 0.0
+        if mode == "int8" and act_scales is None:
+            # Calibrate on the CANONICAL graph, before the stem rewrite:
+            # the float forward sums in another order in the two graph
+            # forms, and with one set of scales the rewritten int8
+            # network stays bit-exact to the canonical one.
+            calib = calibration_images
+            if calib is None:
+                calib = _calibration_from_dir(spec.image_size)
+            if calib is None:
+                calib = _default_calibration_images(spec.image_size)
+            t0 = time.perf_counter()
+            self.act_scales = quantize.calibrate(spec, folded_params, calib,
+                                                 device=self.device)
+            self.calibration_s = time.perf_counter() - t0
+        rewritten = s2d.stem_to_s2d(spec, folded_params)
+        if rewritten is not None:
+            spec, folded_params = rewritten
+        self.spec = spec
+        if mode == "int8":
+            self.qparams = quantize.quantize_params(spec, folded_params,
+                                                    self.act_scales)
+            self.net = quantize.Int8Net(spec, self.qparams,
+                                        device=self.device).eval()
+        else:
+            self.net = YoloNet(spec, folded_params,
+                               dtype=self.compute_dtype,
+                               device=self.device).eval()
         self.buckets = tuple(sorted(buckets))
         self.max_batch = self.buckets[-1]
         # Tier memory: layout -> "dense" when recent traffic of that

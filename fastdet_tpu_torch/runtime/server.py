@@ -668,12 +668,14 @@ def build_services(
     warmup: bool = True,
     device: str = "cuda",
     buckets: Optional[Tuple[int, ...]] = None,
+    calibration_images=None,
 ) -> Dict[str, object]:
     """Build {path: service} from reference-style ``name:num_classes:path``
     registry arguments (server.py:354-358); empty -> {'detect': dummy}
     (server.py:359-360). Engines run on ``device`` (the card unless the
     caller asks for the CPU), with the engine's default batch buckets
-    unless ``buckets`` is given.
+    unless ``buckets`` is given; ``mode="int8"`` engines calibrate on
+    ``calibration_images`` ((N, H, W, 3) uint8) when given.
     """
     services: Dict[str, object] = {}
     if not registry_args:
@@ -687,6 +689,7 @@ def build_services(
         spec, params = weights.load_model(path, num_classes=int(num_classes))
         kw = {} if buckets is None else {"buckets": buckets}
         engine = DetectionEngine(spec, params, mode=mode, device=device,
+                                 calibration_images=calibration_images,
                                  **kw)
         if warmup:
             engine.warmup()

@@ -114,10 +114,29 @@ def test_pixel_path_pads_and_rejects_wrong_size(port_engine):
         port_engine.detect([np.zeros((8, 8, 3), np.uint8)], [0.5])
 
 
-def test_int8_mode_not_yet_ported():
-    spec, params = weights.load_model("synthetic:tiny", num_classes=80)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DetectionEngine(spec, params, mode="int8", device="cpu")
+def test_int8_mode_not_yet_ported(native_ready):
+    """Named for the first slice, where ``-m int8`` raised: the server's
+    int8 mode now builds an int8 engine (tiny: no s2d stem to rewrite)
+    that answers frames through the sparse ingest."""
+    from fastdet_tpu_torch.models import quantize
+    from fastdet_tpu_torch.runtime import jpeg
+
+    data = (TESTDATA / "scene1.jpg").read_bytes()
+    services = build_services(["tiny:80:synthetic:tiny"], mode="int8",
+                              warmup=False, device="cpu", buckets=(1,),
+                              calibration_images=jpeg.decode_rgb(data)[None])
+    eng = services["tiny"].engine
+    try:
+        assert isinstance(eng.net, quantize.Int8Net)
+        assert eng.spec.layers == weights.load_model(
+            "synthetic:tiny", num_classes=80)[0].layers
+        assert eng.calibration_s > 0 and set(eng.act_scales) == {
+            l.name for l in eng.spec.conv_specs()}
+        res, got, wire = _dispatch(eng, [data])
+        assert res.counts == {"sparse": 1}
+        assert len(wire[0]) == 10 * len(got[0])
+    finally:
+        eng.close()
 
 
 def test_server_answers_client_and_stops(port_engine, native_ready):

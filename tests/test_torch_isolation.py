@@ -53,6 +53,9 @@ def test_every_module_imports_with_jax_blocked():
             fastdet_tpu_torch.__path__, "fastdet_tpu_torch.")]
         for m in mods:
             importlib.import_module(m)
+        for m in ("ops.ingest_stages", "models.quantize", "models.s2d",
+                  "tools.debug_ingest"):
+            assert "fastdet_tpu_torch." + m in mods, m
         import chip_smoke
         try:
             chip_smoke.main(["chip_smoke.py", "--help"])

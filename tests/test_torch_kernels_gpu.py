@@ -1,4 +1,6 @@
-"""Kernels B1 and B2 on the card against their plain PyTorch versions.
+"""Kernels B1, B2, D1 and D2 on the card against their plain PyTorch
+versions, and the int8 convolution's card route (torch._int_mm) against
+its plain 4-bit split route.
 
 Marked ``gpu``: they skip without a CUDA card. This file imports no JAX
 (the card machine has none), so on the card it runs on its own:
@@ -12,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from fastdet_tpu_torch.models import quantize
+from fastdet_tpu_torch.ops import ingest_stages as st
 from fastdet_tpu_torch.ops import jpeg_device as jd
 from fastdet_tpu_torch.ops import plane_ingest as pi
 from fastdet_tpu_torch.ops import sparse_ingest as si
@@ -86,3 +90,46 @@ def test_b2_kernel_matches_plain_version(size):
     assert pi.LAUNCHES == launches + 1
     torch.testing.assert_close(got, pi.plane_ingest_plain(y, cb, cr),
                                rtol=0, atol=0)
+
+
+def _stage_case(label, dev, B=2, NB=64):
+    from fastdet_tpu_torch.tools import debug_ingest
+
+    rows = st.build_case(np.random.RandomState(13), B, NB,
+                         **debug_ingest.CASES[label])
+    plen, ms, _, nib = (torch.from_numpy(a).to(dev) for a in rows[:4])
+    return st.prepare_streams(plen, ms, nib, NB)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["tool", "escapes", "dense span"])
+def test_d1_d2_kernels_match_plain_versions(label):
+    dev = _card()
+    s = _stage_case(label, dev)
+    args = (s.ms32, s.vals32, s.moffx, s.probe)
+    launches = dict(st.LAUNCHES)
+    got = st.stages(*args, s.bt)
+    nat2 = st.nat_gated(*args, s.eoff1, s.bt)
+    assert st.LAUNCHES == {"D1": launches["D1"] + 1,
+                           "D2": launches["D2"] + 1}
+    for g, w in zip(got, st.stages_plain(*args, s.bt)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    torch.testing.assert_close(
+        nat2, st.nat_gated_plain(*args, s.eoff1, s.bt), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,o,k,stride,pad", [
+    (3, 24, 3, 1, None), (64, 128, 3, 2, None), (128, 64, 1, 1, None),
+    (128, 64, 2, 1, ((1, 0), (1, 0))), (1024, 512, 3, 1, None)])
+def test_int_mm_route_matches_split_route(c, o, k, stride, pad):
+    dev = _card()
+    rng = np.random.RandomState(c + o)
+    xq = torch.from_numpy(rng.randint(-127, 128, (2, c, 13, 13)).astype(
+        np.int8)).to(dev).contiguous(memory_format=torch.channels_last)
+    w_q = torch.from_numpy(rng.randint(-127, 128, (k, k, c, o)).astype(
+        np.int8)).to(dev)
+    got = quantize.conv_int8_mm(xq, quantize.mm_weight(w_q), k, stride, pad,
+                                o)
+    want = quantize.conv_int8_split(xq, w_q, stride, pad)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
