@@ -35,7 +35,7 @@ Drives the port's main path end to end and checks every kernel on it:
      through the sparse, dense and planes tiers, the same over loopback;
      on one fixture the int32 sums of every int8 conv through
      torch._int_mm equal the 4-bit split route, and the card's int8
-     engine equals a CPU int8 engine with the same scales; int8 against
+     engine equals a CPU engine running its quantized parameters; int8 against
      bf16 (matched boxes, batch wall, device time) is printed;
 
 then prints the card line, the kernels line and, last, the result line.
@@ -422,6 +422,26 @@ def phase_b2(torch, fixtures):
 # Phase 6: kernels D1 and D2 (B1's stages, the kernel-debug path)
 # --------------------------------------------------------------------------
 
+def _stage_read_bytes(torch, s, nb, gated):
+    """Bytes D1 (``gated`` False) or D2 must read from these streams: the
+    mask entries up to moffx[NB], the value entries up to probe[NB] or as
+    far as a staged tile segment reaches (D1 stages every tile's bt*32
+    values, D2 only those of tiles on its fast route), the block offsets,
+    and for D2 the escape offsets at the tile boundaries. The padding
+    past the content is read only where a segment reaches into it."""
+    bt, t2 = s.bt, s.bt * 32
+    mo, po = s.moffx.long(), s.probe.long()
+    s0 = po[:, 0:nb:bt]
+    seg_end = torch.clamp(s0 + t2, max=s.vals32.shape[1])
+    if gated:
+        seg_end = torch.where(po[:, bt::bt] - s0 <= t2, seg_end, 0)
+    v_end = torch.maximum(po[:, nb], seg_end.amax(1))
+    entries = int(mo[:, nb].sum()) + int(v_end.sum()) + 2 * po.numel()
+    if gated:
+        entries += po.shape[0] * (nb // bt + 1)
+    return 4 * entries
+
+
 def phase_stages(torch):
     import numpy as np
 
@@ -468,7 +488,6 @@ def phase_stages(torch):
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    ins = nbytes(args)
     res = {}
     for key, fn, plain, kernel, out_bytes in (
         ("D1", lambda: st.stages(*args, s.bt),
@@ -478,7 +497,7 @@ def phase_stages(torch):
          lambda: st.nat_gated_plain(*args, s.eoff1, s.bt),
          "nat_gated_kernel", nbytes([got.nat])),
     ):
-        in_bytes = ins + (nbytes([s.eoff1]) if key == "D2" else 0)
+        in_bytes = _stage_read_bytes(torch, s, nb, gated=key == "D2")
         timing = (_time_ms(torch, fn), _time_ms(torch, plain, iters=5),
                   (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3)
         dev_ms = _device_ms(torch, fn, kernel)
@@ -732,6 +751,8 @@ def phase_int8(torch, fixtures, bf16_services, bf16_records):
 
         # every int8 conv of one fixture: _int_mm == 4-bit split
         net = eng.net
+        w_q = {n: torch.from_numpy(p["w_q"]).to(eng.device)
+               for n, p in eng.qparams.items() if "w_q" in p}
         img = jpeg_mod.decode_rgb(fixtures[scenes[0]])
         x = torch.from_numpy(img[None]).to(eng.device).float() * (1.0 / 255.0)
         diffs = []
@@ -739,7 +760,7 @@ def phase_int8(torch, fixtures, bf16_services, bf16_records):
 
         def checking(xq, l):
             got = route(xq, l)
-            want = quantize.conv_int8_split(xq, net.w_q[l.name], l.stride,
+            want = quantize.conv_int8_split(xq, w_q[l.name], l.stride,
                                             l.pad)
             diffs.append(int((got - want).abs().max().item()))
             return got
@@ -753,14 +774,18 @@ def phase_int8(torch, fixtures, bf16_services, bf16_records):
         torch.cuda.synchronize()
         say(f"[7] {scenes[0]}: {len(diffs)} int8 convs, max |_int_mm - "
             f"4-bit split| = {max(diffs)}")
-        expect(len(diffs) == len(net.w_q) and max(diffs) == 0,
+        expect(len(diffs) == len(w_q) and max(diffs) == 0,
                f"_int_mm and the split route disagree: {diffs}")
 
-        # the card's int8 engine == a CPU int8 engine, same scales
+        # the card's int8 engine == a CPU engine running the same
+        # quantized parameters (its own f32 net replaced)
         spec, params = weights.load_model(WEIGHTS)
-        cpu8 = DetectionEngine(spec, params, mode="int8", buckets=(1,),
-                               device="cpu", act_scales=eng.act_scales)
+        cpu8 = DetectionEngine(spec, params, mode="f32", buckets=(1,),
+                               device="cpu")
         try:
+            expect(cpu8.spec == eng.spec, "the CPU engine's graph differs")
+            cpu8.net = quantize.Int8Net(cpu8.spec, eng.qparams,
+                                        device="cpu").eval()
             n = scenes[0]
             got = []
             for e in (eng, cpu8):

@@ -51,32 +51,6 @@ from fastdet_tpu_torch.models.yolov3 import (
     YoloHead, YoloNet)
 
 
-def _walk(spec: ModelSpec, x: torch.Tensor, conv_fn) -> List[torch.Tensor]:
-    """Shared graph walk over NCHW tensors; conv_fn(layer, x) -> y.
-    Returns the heads as NHWC float32."""
-    outputs: List[torch.Tensor] = []
-    heads: List[torch.Tensor] = []
-    cur = x
-    for l in spec.layers:
-        if isinstance(l, Conv):
-            cur = conv_fn(l, cur)
-        elif isinstance(l, SpaceToDepth):
-            cur = layers.space_to_depth(cur, l.factor, l.pad_channels)
-        elif isinstance(l, MaxPool):
-            cur = layers.maxpool2d(cur, l.size, l.stride)
-        elif isinstance(l, Upsample):
-            cur = layers.upsample2x(cur)
-        elif isinstance(l, Route):
-            srcs = [outputs[i] for i in l.sources]
-            cur = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
-        elif isinstance(l, Shortcut):
-            cur = cur + outputs[l.source]
-        elif isinstance(l, YoloHead):
-            heads.append(cur.permute(0, 2, 3, 1).float().contiguous())
-        outputs.append(cur)
-    return heads
-
-
 def emits_int8(spec: ModelSpec) -> Dict[str, bool]:
     """Per bn-conv: does its output stay int8 (chain successor consumes
     int8 directly)? Routes/shortcuts/heads force a float boundary."""
@@ -107,16 +81,14 @@ def collect_act_absmax(spec: ModelSpec, folded_params: Dict[str, Any],
     stats_in: Dict[str, torch.Tensor] = {}
     stats_out: Dict[str, torch.Tensor] = {}
 
-    def conv_fn(l: Conv, x):
+    def record(l: Conv, x, y):
         stats_in[l.name] = x.abs().amax()
-        y = layers.conv_block(x, net.weights[l.name], net.biases[l.name],
-                              l.stride, l.act, l.pad)
         if l.bn:
             stats_out[l.name] = y.abs().amax()
-        return y
 
     with torch.inference_mode():
-        _walk(spec, _nchw(images, dev), conv_fn)
+        net(torch.as_tensor(images, dtype=torch.float32).to(dev),
+            on_conv=record)
     return stats_in, stats_out
 
 
@@ -300,8 +272,8 @@ class Int8Net(nn.Module):
             return torch.as_tensor(np.asarray(v, np.float32), device=dev)
 
         self.float_convs: Dict[str, tuple] = {}
-        self.w_q: Dict[str, torch.Tensor] = {}
-        self.wmat: Dict[str, torch.Tensor] = {}
+        self.w_q: Dict[str, torch.Tensor] = {}    # HWIO, the CPU's route
+        self.wmat: Dict[str, torch.Tensor] = {}   # GEMM form, the card's
         self.w_scale: Dict[str, torch.Tensor] = {}
         self.bias: Dict[str, torch.Tensor] = {}
         self.x_scale: Dict[str, torch.Tensor] = {}
@@ -319,9 +291,10 @@ class Int8Net(nn.Module):
                     f32(p["b"]))
                 continue
             w_q = torch.from_numpy(np.asarray(p["w_q"], np.int8)).to(dev)
-            self.w_q[l.name] = w_q
             if dev.type == "cuda":
                 self.wmat[l.name] = mm_weight(w_q)
+            else:
+                self.w_q[l.name] = w_q
             self.w_scale[l.name] = f32(p["w_scale"])
             self.bias[l.name] = f32(p["b"])
             self.x_scale[l.name] = f32(p["x_scale"])
@@ -380,7 +353,7 @@ class Int8Net(nn.Module):
                 # int8: s2d is value-preserving and the scale per tensor,
                 # so quantize -> s2d == s2d -> quantize exactly
                 nxt = self._next_conv(li)
-                if cs is None and nxt is not None and nxt.name in self.w_q:
+                if cs is None and nxt is not None and nxt.name in self.w_scale:
                     cur = _quantize(cur, self.x_inv[nxt.name])
                     cs = self.x_scale[nxt.name]
                 cur = layers.space_to_depth(cur, l.factor, l.pad_channels)

@@ -19,7 +19,7 @@ first (13x13, biggest anchors).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -290,17 +290,26 @@ class YoloNet(nn.Module):
             self.weights[l.name] = nn.Parameter(w, requires_grad=False)
             self.biases[l.name] = nn.Parameter(b, requires_grad=False)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """(B, H, W, 3) float in [0, 1] -> per-scale NHWC float32 heads."""
+    def forward(self, x: torch.Tensor,
+                on_conv: Optional[Callable[[Conv, torch.Tensor,
+                                            torch.Tensor], None]] = None
+                ) -> List[torch.Tensor]:
+        """(B, H, W, 3) float in [0, 1] -> per-scale NHWC float32 heads.
+
+        ``on_conv(layer, x, y)``, when given, sees each conv's input and
+        output (int8 calibration reads their absolute maxima)."""
         cur = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         outputs: List[torch.Tensor] = []
         heads: List[torch.Tensor] = []
         for l in self.spec.layers:
             if isinstance(l, Conv):
-                cur = layers.conv_block(cur, self.weights[l.name],
-                                        self.biases[l.name], l.stride,
-                                        l.act, l.pad)
+                y = layers.conv_block(cur, self.weights[l.name],
+                                      self.biases[l.name], l.stride,
+                                      l.act, l.pad)
+                if on_conv is not None:
+                    on_conv(l, cur, y)
+                cur = y
             elif isinstance(l, SpaceToDepth):
                 cur = layers.space_to_depth(cur, l.factor, l.pad_channels)
             elif isinstance(l, MaxPool):

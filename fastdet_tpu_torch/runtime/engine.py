@@ -290,13 +290,10 @@ class DetectionEngine:
         folded: bool = False,
         device="cuda",
         calibration_images: Optional[np.ndarray] = None,
-        act_scales: Optional[Dict[str, Dict[str, float]]] = None,
     ):
         """``calibration_images`` (N, H, W, 3) uint8 are the int8 mode's
         calibration frames (else FASTDET_CALIB_DIR, else synthetic
-        scenes); ``act_scales`` are the scales of an earlier calibration
-        of the same model ({conv: {"x", "y"}}, :attr:`act_scales`), used
-        instead of calibrating."""
+        scenes)."""
         if mode not in _COMPUTE_DTYPES:
             raise ValueError(f"unknown mode {mode!r}")
         self.device = device_mod.resolve(device)
@@ -312,10 +309,9 @@ class DetectionEngine:
         folded_params = params if folded else weights.fold_params(spec,
                                                                   params)
         #: int8: the activation scales and the calibration's wall seconds
-        #: (0.0 when ``act_scales`` were given)
-        self.act_scales = act_scales
+        self.act_scales: Optional[Dict[str, Dict[str, float]]] = None
         self.calibration_s = 0.0
-        if mode == "int8" and act_scales is None:
+        if mode == "int8":
             # Calibrate on the CANONICAL graph, before the stem rewrite:
             # the float forward sums in another order in the two graph
             # forms, and with one set of scales the rewritten int8

@@ -1,6 +1,6 @@
 """Kernel B1's stages one by one on the card: kernels D1 and D2.
 
-    python -m fastdet_tpu_torch.tools.debug_ingest [--device cuda|cpu]
+    python -m fastdet_tpu_torch.tools.debug_ingest
 
 The port's counterpart of the JAX package's tools/debug_kernel_tpu.py.
 For each case below it runs kernel D1 (every stage of B1 written out)
@@ -14,8 +14,8 @@ holds each output against its plain PyTorch version
 
 On escape-free cases it also holds D1's ``nat`` against kernel B1's AC
 coefficients of the same rows (``nat==B1``), and it checks that each case
-reaches the route it is there for. It exits 1 on any FAIL. ``--device
-cpu`` runs the plain versions against themselves (the control flow only).
+reaches the route it is there for. It runs on the card (it raises
+without one) and exits 1 on any FAIL.
 
 Cases (B=2 frames of NB=64 blocks, ``RandomState(13)``):
 
@@ -111,14 +111,10 @@ def run(dev: torch.device, prefix: str = "") -> List[Dict[str, object]]:
 
 
 def main(argv) -> int:
-    ap = argparse.ArgumentParser(
+    argparse.ArgumentParser(
         description=__doc__,
-        formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; the kernels) or cpu (the plain "
-                         "versions only)")
-    args = ap.parse_args(argv)
-    dev = device_mod.resolve(args.device)
+        formatter_class=argparse.RawDescriptionHelpFormatter).parse_args(argv)
+    dev = device_mod.resolve("cuda")
     with torch.inference_mode():
         results = run(dev)
     ok = all(r["ok"] for r in results)

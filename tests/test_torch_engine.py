@@ -115,9 +115,10 @@ def test_pixel_path_pads_and_rejects_wrong_size(port_engine):
 
 
 def test_int8_mode_not_yet_ported(native_ready):
-    """Named for the first slice, where ``-m int8`` raised: the server's
-    int8 mode now builds an int8 engine (tiny: no s2d stem to rewrite)
-    that answers frames through the sparse ingest."""
+    """The name is the first slice's, where ``-m int8`` raised; it is kept
+    so the test's record carries over. The server's int8 mode now builds
+    an int8 engine (tiny: no s2d stem to rewrite) that answers frames
+    through the sparse ingest."""
     from fastdet_tpu_torch.models import quantize
     from fastdet_tpu_torch.runtime import jpeg
 

@@ -242,13 +242,23 @@ def test_d2_plain_gate_is_per_tile():
 
 
 def test_debug_tool_runs_every_case_on_the_cpu(capsys):
-    assert debug_ingest.main(["--device", "cpu"]) == 0
+    """The tool's cases and lines, here through the plain versions
+    alone (its entry point takes the card)."""
+    results = debug_ingest.run(torch.device("cpu"))
+    assert [r["case"] for r in results] == list(debug_ingest.CASES)
+    assert all(r["ok"] and r["max_abs_err"] == 0 for r in results)
     out = capsys.readouterr().out
     for stage in st.Stages._fields + ("nat2[full]", "nat==B1"):
         assert f"{stage}: OK" in out
     assert "FAIL" not in out
     assert "2 of 2 tiles on D2's dense route" in out
     assert "2 escape-gated" in out
+
+
+def test_debug_tool_entry_point_needs_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        debug_ingest.main([])
 
 
 def test_bt_must_divide_nb():

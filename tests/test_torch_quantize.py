@@ -290,7 +290,11 @@ def _jax_engine(jspec, folded, calib):
                      calibration_images=calib, devices=jax.devices()[:1])
 
 
-def test_int8_engine_matches_jax_engine():
+def test_int8_engine_matches_jax_engine(monkeypatch):
+    """The engine's int8 branch (calibrate, stem rewrite, quantize) given
+    the JAX calibration's scales: the calibration forward itself is held
+    to rtol 1e-5 (test_int8_engine_calibrates_on_its_frames), and one ulp
+    of a scale moves int8 counts."""
     spec, jspec = _small(yolov3), _small(jax_yolov3)
     folded = _folded(spec, seed=11)
     calib = _calib(2, seed=12)
@@ -300,12 +304,13 @@ def test_int8_engine_matches_jax_engine():
     jeng = _jax_engine(jspec, folded, calib)
     want = jeng.detect(frames, [0.05, 0.05])
     scales = jax_quantize.calibrate(jspec, folded, calib)
+    monkeypatch.setattr(quantize, "calibrate", lambda *a, **k: scales)
     eng = DetectionEngine(spec, folded, mode="int8", buckets=(2,),
-                          folded=True, device="cpu", act_scales=scales)
+                          folded=True, device="cpu", calibration_images=calib)
     try:
         assert isinstance(eng.spec.layers[0], yolov3.SpaceToDepth)
         assert isinstance(eng.net, quantize.Int8Net)
-        assert eng.calibration_s == 0.0
+        assert eng.act_scales is scales
         got = eng.detect(frames, [0.05, 0.05])
     finally:
         eng.close()
@@ -318,8 +323,8 @@ def test_int8_engine_matches_jax_engine():
 
 
 def test_int8_engine_calibrates_on_its_frames():
-    """Without act_scales the engine calibrates on the canonical graph
-    (before the s2d rewrite) from calibration_images."""
+    """The engine calibrates on the canonical graph (before the s2d
+    rewrite) from calibration_images."""
     spec = _small(yolov3)
     folded = _folded(spec, seed=11)
     calib = _calib(2, seed=12)
