@@ -12,13 +12,20 @@ Drives the port's main path end to end and checks every kernel on it:
      CUDA kernels: B1, B2, D1, D2);
   2. kernel B1 (sparse coefficient reconstruction) against its plain
      PyTorch version on the card, on std (v6) and dense (v5) rows of
-     every testdata/*.jpg, five synthetic edge classes and a zeroed row
-     (max |diff| must be 0), then CUDA-event timings at B = 8 and 16;
-  3. kernel B2 (4:2:0 plane ingest) likewise on the fixtures' planes;
+     every testdata/*.jpg and a zeroed row (all of them, and the first
+     two), without and with the DC column, and five synthetic edge
+     classes (max |diff| must be 0); then, on the rows the server sends
+     through each tier at B = 1, 8 and 16, the same check, CUDA-event
+     timings and the profiler's device time;
+  3. kernel B2 (4:2:0 plane ingest) likewise on the fixtures' planes,
+     on views of packed 259,588-byte rows at odd frames and at 32x34,
+     timed at B = 1, 8 and 16;
   4. engine: the server's models (build_services, the server CLI's
      entry) on weights/detect80_full.npz in the default bf16 mode; one
      batch of the seven fixtures must hit the sparse, sparse_dense and
-     planes tiers and launch both kernels; an f32 engine on the card is
+     planes tiers and launch both kernels; the net's input on each
+     sparse dispatch must equal the same rows through reconstruct_plain
+     and the DC lane as a separate pass; an f32 engine on the card is
      held against the same engine on the CPU on three fixtures;
   5. over the wire: a DetectionServer on 127.0.0.1 answers the seven
      fixtures sent by the port's DetectClient; each response must match
@@ -31,7 +38,8 @@ Drives the port's main path end to end and checks every kernel on it:
      against their plain versions, D1's nat against B1's output on the
      same rows, and their timings;
   7. int8: the server's int8 models (build_services, mode int8,
-     calibrated on testdata/scene*.jpg): one batch of the seven fixtures
+     calibrated on testdata/scene*.jpg, decoded by runtime.jpeg, whose
+     decoder is printed): one batch of the seven fixtures
      through the sparse, dense and planes tiers, the same over loopback;
      on one fixture the int32 sums of every int8 conv through
      torch._int_mm equal the 4-bit split route, and the card's int8
@@ -162,25 +170,51 @@ def _stage_row(data: bytes, caps):
 
 
 def _b1_inputs(torch, rows, caps, dev):
-    """(offs, maskstream, vals, esc8, esc16, sentinel) on ``dev`` for a
-    stack of packed rows of one format: the engine's own unpack."""
+    """((offs, maskstream, vals, esc8, esc16, sentinel), dc) on ``dev``
+    for a stack of packed rows of one format: the engine's own unpack."""
     import numpy as np
 
     from fastdet_tpu_torch.ops import jpeg_device as jd
     from fastdet_tpu_torch.ops import sparse_ingest as si
     from fastdet_tpu_torch.runtime import engine as eng_mod
+    from fastdet_tpu_torch.runtime import native_jpeg
 
     packed = torch.from_numpy(np.stack(rows)).to(dev)
     bo = [0] + [int(v) for v in eng_mod.sparse_offsets(caps)]
     f = [packed[:, bo[i]:bo[i + 1]].contiguous() for i in range(len(bo) - 1)]
+    yb, cb = native_jpeg.sparse_geometry(416, 416, 2, 2)
     if caps.fmt == 6:
         vals, sentinel = jd.unpack_3bit(f[3]), -4
+        dc = jd.dc_reconstruct6(f[2], f[6].view(torch.int8),
+                                f[7].view(torch.int16), yb, cb)
     else:
         vals, sentinel = jd.unpack_nibbles(f[3]), -8
+        dc = jd.dc_reconstruct(f[2].view(torch.int8), f[6].view(torch.int16),
+                               yb, cb)
     esc8 = f[4].view(torch.int8)
     esc16 = f[5].view(torch.int16)
     offs = si.stream_offsets(f[0], f[1], vals, esc8, caps.nb, sentinel)
-    return offs, f[1], vals.contiguous(), esc8, esc16, sentinel
+    return (offs, f[1], vals.contiguous(), esc8, esc16, sentinel), dc
+
+
+def _b1_moved_bytes(torch, offs, bt, nframes):
+    """Bytes kernel B1 moves at tile ``bt`` on these offsets: each tile's
+    staged offsets and its segments of the four streams (each at most its
+    shared-memory share: 8 mask bytes, 32 values, 8 level-1 and 2 level-2
+    escapes per block), the DC column and the int32 output. Window entries
+    outside a staged segment, read from global memory, are not counted."""
+    nb = offs.shape[2] - 1
+    o = offs.long()
+    j0 = torch.arange(0, nb, bt, device=offs.device)
+    j1 = torch.clamp(j0 + bt, max=nb)
+
+    def span(r, share, size):
+        return size * int(torch.clamp(o[:, r, j1] - o[:, r, j0], 0,
+                                      share * bt).sum())
+
+    staged_offs = 4 * 4 * int((j1 - j0 + 1).sum()) * nframes
+    return (staged_offs + span(0, 8, 1) + span(1, 32, 4) + span(2, 8, 1)
+            + span(3, 2, 2) + nframes * nb * (4 + 256))
 
 
 def _edge_case(np, rng, nb, esc1_p, esc2_p, max_nnz, nib_cap):
@@ -289,6 +323,15 @@ def _where_time_goes(torch, fn, tag="[4]"):
     return busy_ms, wall_ms
 
 
+def _b1_diff(torch, si, args, dc):
+    """max |kernel - plain| of B1 on ``args`` without and with ``dc``."""
+    want = si.reconstruct_plain(*args)
+    diff = max(int((si.reconstruct(*args, dc=d) - w).abs().max().item())
+               for d, w in ((None, want), (dc, si._with_dc(want, dc))))
+    torch.cuda.synchronize()
+    return diff
+
+
 def phase_b1(torch, fixtures):
     import numpy as np
 
@@ -297,10 +340,11 @@ def phase_b1(torch, fixtures):
     from fastdet_tpu_torch.runtime import engine as eng_mod
 
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     budgets = eng_mod.sparse_budgets()
     worst = 0
     cases = 0
-    std_rows = {}
+    served, std_fit = {}, set()
     for tier in ("std", "dense"):
         caps = eng_mod.sparse_caps(416, (2, 2), budgets["fmt"][tier],
                                    budgets[tier])
@@ -310,19 +354,26 @@ def phase_b1(torch, fixtures):
             rows.append(row)
             fits.append(fit)
         rows.append(np.zeros_like(rows[0]))     # zeroed row
+        # the rows the server sends through B1 at this tier: the frames
+        # that fit it (the dense tier gets those that overflowed std)
+        names = [n for n, f in zip(fixtures, fits)
+                 if f and n not in std_fit]
         if tier == "std":
-            std_rows = {"caps": caps, "rows": [r for r, f in
-                                               zip(rows, fits) if f]}
-        args = _b1_inputs(torch, rows, caps, dev)
-        got = si.reconstruct(*args)
-        want = si.reconstruct_plain(*args)
-        torch.cuda.synchronize()
-        diff = int((got - want).abs().max().item())
-        worst = max(worst, diff)
-        cases += len(rows)
+            std_fit = set(names)
+        served[tier] = (caps, names, [r for n, r in zip(fixtures, rows)
+                                      if n in names])
+        args, dc = _b1_inputs(torch, rows, caps, dev)
+        diff = _b1_diff(torch, si, args, dc)
+        # two rows: the tile the server's bucket 2 gets
+        args2, dc2 = _b1_inputs(torch, rows[:2], caps, dev)
+        diff2 = _b1_diff(torch, si, args2, dc2)
+        worst = max(worst, diff, diff2)
+        cases += 2 * len(rows) + 4
         say(f"[2] B1 {tier} (v{caps.fmt}): {len(rows)} rows "
             f"({sum(fits)} fit, {len(fits) - sum(fits)} truncated, 1 "
-            f"zeroed): max |kernel - plain| = {diff}")
+            f"zeroed), tile {si.tile(len(rows), caps.nb, sms)}, without "
+            f"and with dc: max |kernel - plain| = {diff}; the first two "
+            f"rows, tile {si.tile(2, caps.nb, sms)}: {diff2}")
     rng = np.random.RandomState(13)
     nb = 4056
     for name, kw in (
@@ -346,26 +397,41 @@ def phase_b1(torch, fixtures):
         say(f"[2] B1 edge case {name}: max |kernel - plain| = {diff}")
     expect(worst == 0, f"B1 disagrees with its plain version: {worst}")
 
-    caps = std_rows["caps"]
-    timing = {}
-    for b in (8, 16):
-        rows = [std_rows["rows"][i % len(std_rows["rows"])]
-                for i in range(b)]
-        args = _b1_inputs(torch, rows, caps, dev)
-        timing[b] = (
-            _time_ms(torch, lambda: si.reconstruct(*args)),
-            _time_ms(torch, lambda: si.reconstruct_plain(*args), iters=5),
-            # rows in + int32 coefficients out
-            (b * eng_mod.sparse_row_bytes(caps) + b * caps.nb * 64 * 4)
-            / H100_BYTES_PER_S * 1e3)
-        say(f"[2] B1 B={b}: kernel {timing[b][0]:.4f} ms, plain "
-            f"{timing[b][1]:.4f} ms, bound {timing[b][2]:.4f} ms (bytes)")
-        if b == 8:
-            dev_ms = _device_ms(torch, lambda: si.reconstruct(*args),
-                                "sparse_reconstruct_kernel")
-            say(f"[2] B1 B=8: device time per launch (profiler) {dev_ms} ms")
-    return {"max_abs_err": worst, "cases": cases, "timing": timing,
-            "device_ms": dev_ms}
+    res = {"max_abs_err": worst, "cases": cases}
+    for tier in ("std", "dense"):
+        caps, names, frames = served[tier]
+        timing, dev_ms, tiles, moved = {}, {}, {}, {}
+        for b in (1, 8, 16):
+            rows = [frames[i % len(frames)] for i in range(b)]
+            args, dc = _b1_inputs(torch, rows, caps, dev)
+            diff = _b1_diff(torch, si, args, dc)
+            expect(diff == 0, f"B1 {tier} B={b} disagrees: {diff}")
+            tiles[b] = si.tile(b, caps.nb, sms)
+            moved[b] = _b1_moved_bytes(torch, args[0], tiles[b], b)
+            timing[b] = (
+                _time_ms(torch, lambda: si.reconstruct(*args, dc=dc)),
+                _time_ms(torch, lambda: si.reconstruct_plain(*args, dc=dc),
+                         iters=5),
+                # rows in + int32 coefficients out + the DC column in
+                (b * eng_mod.sparse_row_bytes(caps) + b * caps.nb * 64 * 4
+                 + b * caps.nb * 4) / H100_BYTES_PER_S * 1e3)
+            dev_ms[b] = _device_ms(torch, lambda: si.reconstruct(
+                *args, dc=dc), "sparse_tile_kernel")
+            moved_ms = moved[b] / H100_BYTES_PER_S * 1e3
+            say(f"[2] B1 {tier} B={b} ({', '.join(names)} cycled): tile "
+                f"{tiles[b]}, max |kernel - plain| = {diff}; kernel "
+                f"{timing[b][0]:.4f} ms, device {dev_ms[b]} ms (profiler), "
+                f"plain {timing[b][1]:.4f} ms, bound {timing[b][2]:.6f} ms "
+                f"(bytes); moves {moved[b]} B ({moved_ms:.6f} ms at 3.35 "
+                f"TB/s)")
+        if tier == "std":
+            res.update(timing=timing, device_ms=dev_ms[8],
+                       device_ms_by_b=dev_ms, tiles=tiles, moved_bytes=moved)
+        else:
+            res.update(dense_device_ms_by_b=dev_ms,
+                       dense_bound_ms_by_b={b: t[2]
+                                            for b, t in timing.items()})
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -397,9 +463,28 @@ def phase_b2(torch, fixtures):
                  .abs().max().item())
     say(f"[3] B2 on {len(planes)} fixtures' planes: max |kernel - plain| "
         f"= {diff}")
+    # the planes tier's packed rows (259,588 B: frame b starts at 4*b mod
+    # 16), cut at odd frames, and a width that is not a multiple of 4
+    packed = torch.cat([y.flatten(1), cb.flatten(1), cr.flatten(1),
+                        torch.zeros_like(y.flatten(1)[:, :4])], 1)
+    yb, cw = 416 * 416, 208 * 208
+    views = (packed[1::2, :yb].view(-1, 416, 416),
+             packed[1::2, yb:yb + cw].view(-1, 208, 208),
+             packed[1::2, yb + cw:yb + 2 * cw].view(-1, 208, 208))
+    d_odd = float((plane_ingest.plane_ingest_batch(*views)
+                   - plane_ingest.plane_ingest_plain(*views))
+                  .abs().max().item())
+    narrow = (y[:, :32, :34].contiguous(), cb[:, :16, :17].contiguous(),
+              cr[:, :16, :17].contiguous())
+    d_narrow = float((plane_ingest.plane_ingest_batch(*narrow)
+                      - plane_ingest.plane_ingest_plain(*narrow))
+                     .abs().max().item())
+    say(f"[3] B2 on packed {packed.shape[1]}-B rows at odd frames: max "
+        f"|kernel - plain| = {d_odd}; at 32x34: {d_narrow}")
+    diff = max(diff, d_odd, d_narrow)
     expect(diff == 0.0, f"B2 disagrees with its plain version: {diff}")
-    timing = {}
-    for b in (8, 16):
+    timing, dev_ms = {}, {}
+    for b in (1, 8, 16):
         y, cb, cr = stack([i % len(planes) for i in range(b)])
         timing[b] = (
             _time_ms(torch, lambda: plane_ingest.plane_ingest_batch(
@@ -411,11 +496,12 @@ def phase_b2(torch, fixtures):
             / H100_BYTES_PER_S * 1e3)
         say(f"[3] B2 B={b}: kernel {timing[b][0]:.4f} ms, plain "
             f"{timing[b][1]:.4f} ms, bound {timing[b][2]:.4f} ms (bytes)")
-        if b == 8:
-            dev_ms = _device_ms(torch, lambda: plane_ingest.plane_ingest_batch(
-                y, cb, cr), "plane_ingest_kernel")
-            say(f"[3] B2 B=8: device time per launch (profiler) {dev_ms} ms")
-    return {"max_abs_err": diff, "timing": timing, "device_ms": dev_ms}
+        dev_ms[b] = _device_ms(
+            torch, lambda: plane_ingest.plane_ingest_batch(y, cb, cr),
+            "plane_ingest_kernel")
+        say(f"[3] B2 B={b}: device time per launch (profiler) {dev_ms[b]} ms")
+    return {"max_abs_err": diff, "timing": timing, "device_ms": dev_ms[8],
+            "device_ms_by_b": dev_ms}
 
 
 # --------------------------------------------------------------------------
@@ -543,6 +629,49 @@ def _same_records(a, b, what):
         expect(iou >= IOU_MIN, f"{what}: IoU {iou:.5f} < {IOU_MIN}")
 
 
+def _sparse_input_check(torch, eng, jpegs):
+    """One engine batch of ``jpegs``: the net's input on each sparse
+    dispatch (kernel B1 writing the DC column) against the same packed
+    rows through reconstruct_plain + _with_dc (the DC lane as a separate
+    pass). Returns (max |diff|, sparse dispatches)."""
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+
+    seen = []
+    pipe, tail = eng._pipeline_sparse, eng._postprocess_tail
+
+    def capture_pipe(packed, layout=(2, 2), tier="std"):
+        seen.append({"args": (packed.clone(), layout, tier)})
+        return pipe(packed, layout, tier)
+
+    def capture_tail(x, thresholds):
+        if seen and "x" not in seen[-1]:
+            seen[-1]["x"] = x.clone()
+        return tail(x, thresholds)
+
+    def plain(offs, ms, vals, esc8, esc16, sentinel, dc=None):
+        return si._with_dc(
+            si.reconstruct_plain(offs, ms, vals, esc8, esc16, sentinel), dc)
+
+    eng._pipeline_sparse, eng._postprocess_tail = capture_pipe, capture_tail
+    try:
+        eng.fetch_wire(eng.detect_async_sparse(jpegs, [THR] * len(jpegs)),
+                       len(jpegs))
+    finally:
+        del eng._pipeline_sparse, eng._postprocess_tail
+    kernel, si.reconstruct = si.reconstruct, plain
+    eng._postprocess_tail = lambda x, thr: x
+    try:
+        diff = 0.0
+        for d in seen:
+            want = eng._pipeline_sparse(*d["args"])
+            diff = max(diff, float((d["x"] - want).abs().max().item()))
+    finally:
+        si.reconstruct = kernel
+        del eng._postprocess_tail
+    torch.cuda.synchronize()
+    return diff, len(seen)
+
+
 def phase_engine(torch, fixtures, services):
     from fastdet_tpu_torch.models import weights
     from fastdet_tpu_torch.ops import plane_ingest
@@ -577,6 +706,13 @@ def phase_engine(torch, fixtures, services):
         expect(all(0 < r[0] <= 80 and r[4] > 0 and r[5] > 0 for r in recs),
                f"{n}: malformed records {recs[:3]}")
     engine_records = {n: _records(w) for n, w in zip(names, wire)}
+    eng._tier_hint.clear()
+    diff, n_sparse = _sparse_input_check(torch, eng, jpegs)
+    say(f"[4] sparse-path net input of {n_sparse} sparse batches (B1 with "
+        f"the DC column) vs reconstruct_plain + _with_dc: max |diff| = "
+        f"{diff}")
+    expect(n_sparse > 0 and diff == 0.0,
+           f"the engine's sparse input differs from the plain route: {diff}")
     eng._tier_hint.clear()
     _where_time_goes(torch, lambda: eng.fetch_wire(eng.detect_async_sparse(
         jpegs, [THR] * len(jpegs)), len(jpegs)))
@@ -712,6 +848,8 @@ def phase_int8(torch, fixtures, bf16_services, bf16_records):
 
     scenes = sorted(n for n in fixtures if n.startswith("scene"))
     calib = np.stack([jpeg_mod.decode_rgb(fixtures[n]) for n in scenes])
+    say(f"[7] calibration frames decoded by {jpeg_mod.LAST_DECODER} "
+        f"(FASTDET_JPEG_BACKEND={jpeg_mod._BACKEND})")
     t0 = time.time()
     services = build_services([f"full:80:{WEIGHTS}"], mode="int8",
                               buckets=(8,), calibration_images=calib)
@@ -833,9 +971,15 @@ def kernels_line(b1, b2, launches, d):
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
             "batch": 8,
         }
-        if 16 in res["timing"]:
-            out["ms_b16"] = res["timing"][16][0]
-            out["bound_ms_b16"] = res["timing"][16][2]
+        for b in (1, 16):
+            if b in res["timing"]:
+                out[f"ms_b{b}"] = res["timing"][b][0]
+                out[f"bound_ms_b{b}"] = res["timing"][b][2]
+                out[f"device_ms_b{b}"] = res["device_ms_by_b"][b]
+        for key in ("tiles", "moved_bytes", "dense_device_ms_by_b",
+                    "dense_bound_ms_by_b"):
+            if key in res:
+                out[key] = res[key]
         return out
 
     return {"kernels": [

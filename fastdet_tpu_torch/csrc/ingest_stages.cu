@@ -106,19 +106,7 @@ ingest_stages_kernel(const int32_t* __restrict__ ms,     // (B, ML)
                          : 0;
   acc[g * 64 + lane] = a0;
   acc[g * 64 + lane + 32] = a1;
-  fd::store_natural(nat + g * 64, lane, a0, a1);
-}
-
-// Value k of a block's window on D2's fast route: from the staged segment
-// when the entry lies in it, else from global memory — the same entry as
-// fd::window_at(vrow, vlen, off, nnz, k) either way.
-__device__ __forceinline__ int staged_at(const int32_t* seg, int t2,
-                                         const int32_t* __restrict__ vrow,
-                                         int vlen, int s0, int off, int nnz,
-                                         int k) {
-  const long li = (long)off - s0 + k;
-  if (k >= 0 && k < nnz && li >= 0 && li < t2) return seg[li];
-  return fd::window_at(vrow, vlen, off, nnz, k);
+  fd::store_natural(nat + g * 64, fd::placement(lane), a0, a1);
 }
 
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
@@ -159,14 +147,19 @@ nat_gated_kernel(const int32_t* __restrict__ ms,     // (B, ML)
     const fd::LaneBits zb = fd::lane_bits(lo, hi, lane);
     const int off = po[j], nnz = po[j + 1] - off;
     int v0 = 0, v1 = 0;
-    if (fast) {
-      if (zb.bit0) v0 = staged_at(seg, t2, vrow, vlen, s0, off, nnz, zb.rank0);
-      if (zb.bit1) v1 = staged_at(seg, t2, vrow, vlen, s0, off, nnz, zb.rank1);
+    if (fast && fd::window_staged(t2, s0, off, nnz)) {
+      if (zb.bit0) v0 = fd::inside_at(seg, off - s0, nnz, zb.rank0);
+      if (zb.bit1) v1 = fd::inside_at(seg, off - s0, nnz, zb.rank1);
+    } else if (fast) {
+      if (zb.bit0)
+        v0 = fd::staged_at(seg, t2, vrow, vlen, s0, off, nnz, zb.rank0);
+      if (zb.bit1)
+        v1 = fd::staged_at(seg, t2, vrow, vlen, s0, off, nnz, zb.rank1);
     } else {
       if (zb.bit0) v0 = fd::window_at(vrow, vlen, off, nnz, zb.rank0);
       if (zb.bit1) v1 = fd::window_at(vrow, vlen, off, nnz, zb.rank1);
     }
-    fd::store_natural(out + ((long)b * nb + j) * 64, lane,
+    fd::store_natural(out + ((long)b * nb + j) * 64, fd::placement(lane),
                       (zb.bit0 ? sext4(v0) : 0) + gate,
                       (zb.bit1 ? sext4(v1) : 0) + gate);
   }

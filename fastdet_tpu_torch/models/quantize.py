@@ -259,13 +259,14 @@ class Int8Net(nn.Module):
     Scales and reciprocals are 0-d float32 tensors computed in numpy
     (f32 division, as XLA's). Int8 convolutions go through
     :meth:`accumulate`: :func:`conv_int8_mm` on the card,
-    :func:`conv_int8_split` on the CPU."""
+    :func:`conv_int8_split` on the CPU. ``device`` is the card by
+    default (:func:`fastdet_tpu_torch.device.resolve`)."""
 
     def __init__(self, spec: ModelSpec, qparams: Dict[str, Any], *,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         dev = self.device
 
         def f32(v):

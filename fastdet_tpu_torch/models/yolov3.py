@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from fastdet_tpu_torch import device as device_mod
 from fastdet_tpu_torch.models import layers
 
 IMAGE_SIZE = 416
@@ -265,7 +266,8 @@ class YoloNet(nn.Module):
 
     ``params`` is {conv_name: {"w": (k, k, in, out) HWIO, "b": (out,)}}
     as numpy arrays (:func:`fastdet_tpu_torch.models.weights.fold_params`);
-    weights are stored OIHW in ``dtype`` on ``device``. ``dtype`` is the
+    weights are stored OIHW in ``dtype`` on ``device`` (the card by
+    default; :func:`fastdet_tpu_torch.device.resolve`). ``dtype`` is the
     compute dtype (bfloat16 or float32): activations, weights and biases
     all carry it, as the JAX interpreter casts them (layers.conv_block);
     cuDNN accumulates in float32 either way.
@@ -273,8 +275,9 @@ class YoloNet(nn.Module):
 
     def __init__(self, spec: ModelSpec, params: Dict[str, Any], *,
                  dtype: torch.dtype = torch.float32,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
+        device = device_mod.resolve(device)
         self.spec = spec
         self.dtype = dtype
         self.weights = nn.ParameterDict()

@@ -143,8 +143,9 @@ def _bind_kernels(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fd_sparse_reconstruct.restype = i
     lib.fd_sparse_reconstruct.argtypes = [
-        p, p, p, p, p, p,        # offs, maskstream, vals, esc8, esc16, out
-        i, i, i, i, i, i, i,     # B, NB, MCAP, NV, E8, E16, sentinel
+        p, p, p, p, p, p, p,     # offs, maskstream, vals, esc8, esc16,
+                                 # dc (or None), out
+        i, i, i, i, i, i, i, i,  # B, NB, MCAP, NV, E8, E16, sentinel, bt
         p]                       # stream
     lib.fd_plane_ingest.restype = i
     lib.fd_plane_ingest.argtypes = [

@@ -4,7 +4,10 @@ Replaces the TPU kernel ``fastdet_tpu/ops/pallas/plane_ingest.py``
 (``_kernel``, launched by ``plane_ingest`` / ``plane_ingest_batch``) with
 a hand-written CUDA kernel, ``csrc/plane_ingest.cu``: libjpeg's "fancy"
 h2v2 chroma upsample as an integer stencil, YCbCr->RGB, round half to
-even, clip, /255 — one pass, NHWC float32 out. Its plain version is
+even, clip, /255 — one pass, NHWC float32 out. One CTA makes a pair of
+output rows from three chroma rows staged in shared memory, four pixels
+per thread, and writes the rows back with 16-byte stores; any even H
+and W and any batch stride are taken. Its plain version is
 jpeg_device.upsample2x_triangle + ycbcr_to_rgb01; the two agree bit for
 bit, and both agree bit for bit with the JAX package's kernel and XLA
 path (tests/test_torch_plane_ingest.py).

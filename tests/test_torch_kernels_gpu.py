@@ -8,6 +8,7 @@ Marked ``gpu``: they skip without a CUDA card. This file imports no JAX
     python -m pytest -q -m gpu --noconftest tests/test_torch_kernels_gpu.py
 """
 
+import functools
 import pathlib
 
 import numpy as np
@@ -73,6 +74,148 @@ def test_b1_kernel_matches_plain_version(tier):
     assert si.LAUNCHES == launches + 1
     torch.testing.assert_close(got, si.reconstruct_plain(*args),
                                rtol=0, atol=0)
+
+
+def _fixture_b1(dev, tier, nframes):
+    """Kernel B1's inputs and DC column for ``nframes`` of the fixtures'
+    rows (cycled) at ``tier``'s caps."""
+    caps, fields = _rows(tier)
+    idx = [i % fields[0].shape[0] for i in range(nframes)]
+    f = [torch.from_numpy(a[idx]).to(dev) for a in fields]
+    yb, cb = native_jpeg.sparse_geometry(416, 416, 2, 2)
+    if caps.fmt == 6:
+        vals, sentinel = jd.unpack_3bit(f[3]), -4
+        dc = jd.dc_reconstruct6(f[2], f[6], f[7], yb, cb)
+    else:
+        vals, sentinel = jd.unpack_nibbles(f[3]), -8
+        dc = jd.dc_reconstruct(f[2], f[6], yb, cb)
+    offs = si.stream_offsets(f[0], f[1], vals, f[4], caps.nb, sentinel)
+    return (offs, f[1].contiguous(), vals.contiguous(), f[4].contiguous(),
+            f[5].contiguous(), sentinel), dc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["std", "dense"])
+@pytest.mark.parametrize("nframes", [1, 16])
+def test_b1_kernel_with_dc_matches_plain_version(tier, nframes):
+    dev = _card()
+    args, dc = _fixture_b1(dev, tier, nframes)
+    launches = si.LAUNCHES
+    got = si.reconstruct(*args, dc=dc)
+    assert si.LAUNCHES == launches + 1
+    want = si.reconstruct_plain(*args)
+    torch.testing.assert_close(got, si._with_dc(want, dc), rtol=0, atol=0)
+    torch.testing.assert_close(got, si.reconstruct_plain(*args, dc=dc),
+                               rtol=0, atol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _synthetic_rows(nframes, nb, ncapb, **kw):
+    return st.build_case(np.random.RandomState(3), nframes, nb, MCAP=8 * nb,
+                         NCAPB=ncapb, E8CAP=64 * nb, E16CAP=32 * nb, **kw)
+
+
+def _synthetic_b1(dev, nframes, nb, ncapb=None, **kw):
+    """Kernel B1's inputs for synthetic v5 rows (st.build_case)."""
+    rows = _synthetic_rows(nframes, nb, ncapb or 32 * nb, **kw)
+    plen, ms, dc8, nib, esc8, esc16, dcesc = (torch.from_numpy(a).to(dev)
+                                              for a in rows)
+    vals = jd.unpack_nibbles(nib).contiguous()
+    offs = si.stream_offsets(plen, ms, vals, esc8, nb, -8)
+    return (offs, ms, vals, esc8, esc16, -8), dc8.to(torch.int32)
+
+
+def _frames_for_tile(dev, nb, bt):
+    """The smallest batch at which the wrapper picks tile ``bt`` for
+    frames of ``nb`` blocks on this card."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return next(b for b in range(1, 4 * sms + 1)
+                if si.tile(b, nb, sms) == bt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,bt", [(37, 8), (37, 16), (37, 32), (37, 64),
+                                   (4056, 16), (4056, 32), (4056, 64)])
+def test_b1_ragged_tiles_match_plain_version(nb, bt):
+    """NB not a multiple of the tile: the last tile of every frame is
+    ragged, with escapes of both levels in the rows. The batch is the
+    one that makes the wrapper pick ``bt``."""
+    dev = _card()
+    assert nb % bt
+    args, dc = _synthetic_b1(dev, _frames_for_tile(dev, nb, bt), nb,
+                             esc1_p=0.25, esc2_p=0.05)
+    for d in (None, dc):
+        got = si.reconstruct(*args, dc=d)
+        torch.testing.assert_close(got, si.reconstruct_plain(*args, dc=d),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,bt", [(37, 8), (4056, 16), (4056, 32),
+                                   (4056, 64)])
+def test_b1_global_route_on_dense_rows(nb, bt):
+    """Dense-tier-like rows (40-63 values per block): every tile's value
+    span overruns the bt*32 entries staged in shared memory, so values
+    past the staged segment come from global memory."""
+    dev = _card()
+    args, dc = _synthetic_b1(dev, _frames_for_tile(dev, nb, bt), nb,
+                             esc1_p=0.2, esc2_p=0.05, min_nnz=40, max_nnz=63,
+                             ncapb=40 * nb)
+    voff = args[0][:, 1].long()
+    span = voff[:, bt::bt] - voff[:, 0:nb - bt + 1:bt]
+    assert (span > bt * 32).all()
+    got = si.reconstruct(*args, dc=dc)
+    torch.testing.assert_close(got, si.reconstruct_plain(*args, dc=dc),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_b1_rejects_bad_dc_on_card():
+    dev = _card()
+    args, dc = _fixture_b1(dev, "std", 1)
+    with pytest.raises(ValueError, match="dc"):
+        si.reconstruct(*args, dc=dc.to(torch.int64))
+    with pytest.raises(ValueError, match="dc"):
+        si.reconstruct(*args, dc=dc.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(32, 34), (6, 2), (18, 530), (416, 416)])
+def test_b2_kernel_any_even_width(h, w):
+    """Widths that end a row in a 2-pixel group, one wider than the
+    kernel's 512-column chunk, and the served size."""
+    dev = _card()
+    rng = np.random.RandomState(h + w)
+    y = torch.from_numpy(rng.randint(0, 256, (3, h, w)).astype(
+        np.uint8)).to(dev)
+    cb, cr = (torch.from_numpy(rng.randint(
+        0, 256, (3, h // 2, w // 2)).astype(np.uint8)).to(dev)
+        for _ in range(2))
+    torch.testing.assert_close(pi.plane_ingest_batch(y, cb, cr),
+                               pi.plane_ingest_plain(y, cb, cr),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_b2_kernel_on_packed_rows_at_odd_frames():
+    """The planes tier's rows are 259,588 bytes, so frame b's planes start
+    at 4*b mod 16: views at odd batch indices (misaligned starts)."""
+    dev = _card()
+    b, size = 6, 416
+    yb, cw = size * size, (size // 2) ** 2
+    rng = np.random.RandomState(11)
+    packed = torch.from_numpy(rng.randint(
+        0, 256, (b, yb + 2 * cw + 4)).astype(np.uint8)).to(dev)
+    assert packed.shape[1] == 259588
+    views = (packed[:, :yb].view(b, size, size),
+             packed[:, yb:yb + cw].view(b, size // 2, size // 2),
+             packed[:, yb + cw:yb + 2 * cw].view(b, size // 2, size // 2))
+    for sel in (slice(1, 2), slice(3, 4), slice(1, 6, 2), slice(0, 6)):
+        v = [t[sel] for t in views]
+        torch.testing.assert_close(
+            pi.plane_ingest_batch(*v),
+            pi.plane_ingest_plain(*(t.contiguous() for t in v)),
+            rtol=0, atol=0)
 
 
 @pytest.mark.gpu

@@ -91,3 +91,24 @@ def test_maxpool_stride1_pads_like_darknet():
     want = np.asarray(jax_layers.maxpool2d(jnp.asarray(x), 2, 1))
     got = layers.maxpool2d(torch.from_numpy(x).permute(0, 3, 1, 2), 2, 1)
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
+
+
+@pytest.mark.parametrize("net", ["YoloNet", "Int8Net"])
+def test_nets_default_to_the_card(monkeypatch, net):
+    """The port's public nets default to device="cuda" and raise when no
+    card is present (device.resolve); the CPU is asked for by name."""
+    from fastdet_tpu_torch.models import quantize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = yolov3.get_spec("tiny", 80)
+    folded = weights.fold_params(spec, weights.synthetic_params(spec))
+    if net == "YoloNet":
+        make = lambda **kw: yolov3.YoloNet(spec, folded, **kw)
+    else:
+        scales = {l.name: {"x": 0.05, "y": 0.05}
+                  for l in spec.conv_specs()}
+        qparams = quantize.quantize_params(spec, folded, scales)
+        make = lambda **kw: quantize.Int8Net(spec, qparams, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    assert make(device="cpu") is not None

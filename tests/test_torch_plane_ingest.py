@@ -85,3 +85,44 @@ def test_wrapper_takes_row_views():
              p[:, yb + cw:yb + 2 * cw].view(2, 16, 16))
     np.testing.assert_array_equal(
         pi.plane_ingest_batch(*views).numpy(), _xla(y, cb, cr))
+
+
+def _rect_planes(h, w, seed, b=2):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 256, (b, h, w)).astype(np.uint8),
+            rng.randint(0, 256, (b, h // 2, w // 2)).astype(np.uint8),
+            rng.randint(0, 256, (b, h // 2, w // 2)).astype(np.uint8))
+
+
+@pytest.mark.parametrize("h,w", [(32, 34), (6, 2), (18, 530)])
+def test_plain_matches_xla_at_widths_not_multiple_of_4(h, w):
+    """Any even H and W: widths that end a row in a 2-pixel group (the
+    kernel's ragged tail) and one wider than the kernel's 512-column
+    chunk."""
+    y, cb, cr = _rect_planes(h, w, seed=h + w)
+    got = pi.plane_ingest_batch(*(torch.from_numpy(a) for a in (y, cb, cr)))
+    assert got.shape == (2, h, w, 3)
+    np.testing.assert_array_equal(got.numpy(), _xla(y, cb, cr))
+
+
+def test_wrapper_takes_packed_rows_at_odd_frames():
+    """The planes tier packs each 416x416 frame as one [Y | Cb | Cr | thr]
+    row of 259,588 bytes, so frame b's planes start at 4*b mod 16 bytes:
+    views cut at odd batch indices give the same result as contiguous
+    planes."""
+    b, size = 4, 416
+    y, cb, cr = _planes(size, seed=7, b=b)
+    yb, cw = size * size, (size // 2) ** 2
+    row = yb + 2 * cw + 4
+    assert row == 259588
+    packed = np.concatenate(
+        [y.reshape(b, -1), cb.reshape(b, -1), cr.reshape(b, -1),
+         np.zeros((b, 4), np.uint8)], axis=1)
+    p = torch.from_numpy(packed)
+    views = (p[:, :yb].view(b, size, size),
+             p[:, yb:yb + cw].view(b, size // 2, size // 2),
+             p[:, yb + cw:yb + 2 * cw].view(b, size // 2, size // 2))
+    want = pi.plane_ingest_plain(*(torch.from_numpy(a) for a in (y, cb, cr)))
+    for sel in (slice(1, 2), slice(1, 4, 2), slice(0, 4)):
+        got = pi.plane_ingest_batch(*(v[sel] for v in views))
+        torch.testing.assert_close(got, want[sel], rtol=0, atol=0)

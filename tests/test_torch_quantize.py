@@ -346,18 +346,20 @@ def test_int8_engine_calibrates_on_its_frames():
 
 def test_calibration_frames_equal_jax(monkeypatch, tmp_path):
     """The engine's calibration inputs: FASTDET_CALIB_DIR frames (only
-    decodable size x size JPEGs) and the synthetic default scenes. The
-    JAX package decodes with OpenCV first unless FASTDET_JPEG_BACKEND is
-    native; the port always decodes natively first (ROADMAP §C), so the
-    JAX side is pinned to its native backend here."""
+    decodable size x size JPEGs) and the synthetic default scenes. Both
+    packages are pinned to their native decoder here
+    (FASTDET_JPEG_BACKEND=native); the default order is checked by
+    test_calibration_frames_equal_jax_default_decoder."""
     import pathlib
     import shutil
 
     from fastdet_tpu.runtime import engine as jax_engine
     from fastdet_tpu.runtime import jpeg as jax_jpeg
     from fastdet_tpu_torch.runtime import engine
+    from fastdet_tpu_torch.runtime import jpeg as port_jpeg
 
     monkeypatch.setattr(jax_jpeg, "_BACKEND", "native")
+    monkeypatch.setattr(port_jpeg, "_BACKEND", "native")
 
     np.testing.assert_array_equal(
         engine._default_calibration_images(SIZE, 3),
@@ -373,3 +375,27 @@ def test_calibration_frames_equal_jax(monkeypatch, tmp_path):
     assert engine._calibration_from_dir(SIZE) is None   # wrong size
     monkeypatch.delenv("FASTDET_CALIB_DIR")
     assert engine._calibration_from_dir(416) is None
+
+
+def test_calibration_frames_equal_jax_default_decoder(monkeypatch, tmp_path):
+    """FASTDET_CALIB_DIR frames with both packages at their default
+    decoder order (FASTDET_JPEG_BACKEND=auto: OpenCV, then PIL): the
+    port's calibration frames equal the JAX package's byte for byte."""
+    import pathlib
+    import shutil
+
+    from fastdet_tpu.runtime import engine as jax_engine
+    from fastdet_tpu.runtime import jpeg as jax_jpeg
+    from fastdet_tpu_torch.runtime import engine
+    from fastdet_tpu_torch.runtime import jpeg as port_jpeg
+
+    monkeypatch.setattr(jax_jpeg, "_BACKEND", "auto")
+    monkeypatch.setattr(port_jpeg, "_BACKEND", "auto")
+    testdata = pathlib.Path(__file__).resolve().parent.parent / "testdata"
+    for n in ("scene1.jpg", "scene2.jpg", "adv_night.jpg"):
+        shutil.copy(testdata / n, tmp_path / n)
+    monkeypatch.setenv("FASTDET_CALIB_DIR", str(tmp_path))
+    got = engine._calibration_from_dir(416)
+    assert got.shape == (3, 416, 416, 3)
+    assert port_jpeg.LAST_DECODER == "cv2"
+    np.testing.assert_array_equal(got, jax_engine._calibration_from_dir(416))

@@ -99,8 +99,8 @@ def test_s2d_f32_forward_equals_canonical():
     x = torch.from_numpy(np.random.RandomState(1).rand(2, 64, 64, 3)
                          .astype(np.float32))
     with torch.inference_mode():
-        h1 = yolov3.YoloNet(spec, folded)(x)
-        h2 = yolov3.YoloNet(spec2, folded2)(x)
+        h1 = yolov3.YoloNet(spec, folded, device="cpu")(x)
+        h2 = yolov3.YoloNet(spec2, folded2, device="cpu")(x)
     assert len(h1) == len(h2) == 3
     for a, b in zip(h1, h2):
         a, b = a.numpy(), b.numpy()

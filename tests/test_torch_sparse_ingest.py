@@ -8,6 +8,7 @@ On the CPU the port's wrapper takes its plain version; the CUDA kernel
 itself is held against that plain version by tests/test_torch_kernels_gpu.py
 and chip_smoke.py on the card."""
 
+import functools
 import importlib.util
 import pathlib
 
@@ -95,17 +96,39 @@ def _fields(caps, rows):
     return [np.stack([v[k] for v in views]) for k in range(len(views[0]))]
 
 
-def _both(caps, rows):
+def _port(caps, f):
     yb, cb = native_jpeg.sparse_geometry(416, 416, 2, 2)
-    f = _fields(caps, rows)
-    jax_fn = (jax_si.sparse6_to_coeffs_batch if caps.fmt == 6
-              else jax_si.sparse5_to_coeffs_batch)
     port_fn = (si.sparse6_to_coeffs_batch if caps.fmt == 6
                else si.sparse5_to_coeffs_batch)
-    want = np.asarray(jax_fn(*(jnp.asarray(a) for a in f), yb, cb,
+    return port_fn(*(torch.from_numpy(a) for a in f), yb, cb).numpy()
+
+
+def _pallas(caps, f):
+    yb, cb = native_jpeg.sparse_geometry(416, 416, 2, 2)
+    jax_fn = (jax_si.sparse6_to_coeffs_batch if caps.fmt == 6
+              else jax_si.sparse5_to_coeffs_batch)
+    return np.asarray(jax_fn(*(jnp.asarray(a) for a in f), yb, cb,
                              interpret=True))
-    got = port_fn(*(torch.from_numpy(a) for a in f), yb, cb).numpy()
-    return got, want
+
+
+@functools.lru_cache(maxsize=None)
+def _row_set(tier, names, zeroed=False):
+    """(caps, fields, fit flags, the Pallas kernel's output) of the
+    fixtures ``names`` at ``tier``'s caps, a zeroed row appended when
+    ``zeroed``; the interpret-mode run is the slow part, so each set runs
+    it once."""
+    caps, rows, fits = _rows(list(names), tier)
+    if zeroed:
+        rows.append(np.zeros_like(rows[0]))
+    f = _fields(caps, rows)
+    return caps, f, fits, _pallas(caps, f)
+
+
+ROW_SETS = [
+    ("std", ("scene1.jpg",), False),        # a v6 row that fits
+    ("dense", ("adv_night.jpg",), False),   # a v5 row that fits
+    ("std", ("adv_noise.jpg",), True),      # a truncated row + a zeroed row
+]
 
 
 @pytest.mark.parametrize("tier,names", [
@@ -113,10 +136,9 @@ def _both(caps, rows):
     ("dense", ["adv_night.jpg"]),    # a v5 row that fits
 ])
 def test_fixture_rows_match_pallas_interpret(tier, names):
-    caps, rows, fits = _rows(names, tier)
+    caps, f, fits, want = _row_set(tier, tuple(names))
     assert all(fits)
-    got, want = _both(caps, rows)
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_port(caps, f), want)
 
 
 def test_zeroed_and_truncated_rows_match_pallas_interpret():
@@ -124,12 +146,66 @@ def test_zeroed_and_truncated_rows_match_pallas_interpret():
     must still stay in bounds on a zeroed row and on a row the emitter
     truncated at the std caps (every stream read past its capacity
     reads 0, as the TPU kernel's zero pad rows do)."""
-    caps, rows, fits = _rows(["adv_noise.jpg"], "std")
+    caps, f, fits, want = _row_set("std", ("adv_noise.jpg",), True)
     assert fits == [False]
-    rows.append(np.zeros_like(rows[0]))
-    got, want = _both(caps, rows)
+    got = _port(caps, f)
     np.testing.assert_array_equal(got, want)
     assert not got[1].any()
+
+
+def _b1_args(caps, f):
+    """Kernel B1's inputs (offs, maskstream, vals, esc8, esc16, sentinel)
+    and the DC column of fixture-row fields ``f``."""
+    yb, cb = native_jpeg.sparse_geometry(416, 416, 2, 2)
+    t = [torch.from_numpy(a) for a in f]
+    if caps.fmt == 6:
+        vals, sentinel = jd.unpack_3bit(t[3]), -4
+        dc = jd.dc_reconstruct6(t[2], t[6], t[7], yb, cb)
+    else:
+        vals, sentinel = jd.unpack_nibbles(t[3]), -8
+        dc = jd.dc_reconstruct(t[2], t[6], yb, cb)
+    offs = si.stream_offsets(t[0], t[1], vals, t[4], caps.nb, sentinel)
+    return (offs, t[1], vals, t[4], t[5], sentinel), dc
+
+
+@pytest.mark.parametrize("tier,names,zeroed", ROW_SETS)
+def test_plain_with_dc_matches_pallas_interpret(tier, names, zeroed):
+    """reconstruct_plain(..., dc) is the whole batch entry: it equals the
+    JAX package's sparse6/sparse5_to_coeffs_batch (Pallas interpret=True)
+    on rows that fit, a truncated row and a zeroed row, and equals the
+    DC lane written as a separate pass (_with_dc)."""
+    caps, f, _, want = _row_set(tier, names, zeroed)
+    args, dc = _b1_args(caps, f)
+    got = si.reconstruct_plain(*args, dc=dc)
+    np.testing.assert_array_equal(got.numpy(), want)
+    torch.testing.assert_close(
+        got, si._with_dc(si.reconstruct_plain(*args), dc), rtol=0, atol=0)
+    # without dc, position 0 is 0 on every row the emitter writes
+    assert not si.reconstruct(*args)[..., 0].any()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "frames"])
+def test_wrapper_rejects_bad_dc(bad):
+    caps, f, _, _ = _row_set("std", ("scene1.jpg",))
+    args, dc = _b1_args(caps, f)
+    dc = {"dtype": dc.to(torch.int64), "shape": dc[:, :-1],
+          "frames": torch.cat([dc, dc])}[bad]
+    with pytest.raises(ValueError, match="dc"):
+        si.reconstruct(*args, dc=dc)
+
+
+@pytest.mark.parametrize("nframes,nb,sms,want", [
+    (1, 4056, 132, 16), (2, 4056, 132, 32), (4, 4056, 132, 64),
+    (16, 4056, 132, 64), (1, 37, 132, 8), (44, 37, 132, 16),
+    (132, 37, 132, 64), (1, 4056, 16, 64)])
+def test_tile_is_largest_that_covers_every_sm(nframes, nb, sms, want):
+    """The server's buckets at 416x416 4:2:0 (NB = 4056) on an H100's 132
+    SMs reach tiles 16, 32 and 64; tiny frames reach 8."""
+    bt = si.tile(nframes, nb, sms)
+    assert bt == want and bt in si.TILES
+    assert want == si.TILES[0] or -(-nb // bt) * nframes >= sms
+    larger = [t for t in si.TILES if t > bt]
+    assert all(-(-nb // t) * nframes < sms for t in larger)
 
 
 def test_fixture_rows_match_gather_formulation():
