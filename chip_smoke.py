@@ -45,6 +45,23 @@ Drives the port's main path end to end and checks every kernel on it:
      torch._int_mm equal the 4-bit split route, and the card's int8
      engine equals a CPU engine running its quantized parameters; int8 against
      bf16 (matched boxes, batch wall, device time) is printed;
+  8. the coefficient path: the bf16 engine's detect_async_jpeg (host
+     int16 coefficients, device decode420_batch) on scene1-3, batched and
+     one at a time, must give the sparse route's records bit for bit
+     (both reach the same coefficients; the sparse one through B1), and
+     None for a 4:4:4 frame and a 224x224 frame; both routes' batch walls
+     are printed;
+  9. checkpoint forms: the checkpoint written as darknet .weights and as
+     .onnx into a temporary directory, one bf16 service built from each
+     (build_services, through cached_import); over loopback each answers
+     the seven fixtures with the records of the .npz service in [5]; a
+     second .weights load takes the .weights.npz cache;
+ 10. the held-out gate of tests/test_trained_detector80.py through the
+     port's server, bf16 and int8: 48 held-out synthetic scenes (q90,
+     threshold 0.2, one request at a time), at least 0.9 of the frames
+     with every object matched, no frame on the pixel route, the modes
+     disagreeing on at most 4 frames; frames ok, failing frames, objects
+     matched, false positives and mAP@0.5 are printed;
 
 then prints the card line, the kernels line and, last, the result line.
 It exits nonzero with no result line when no CUDA card is present, when
@@ -55,6 +72,7 @@ hung run with every thread's stack.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import os
@@ -739,12 +757,13 @@ def phase_engine(torch, fixtures, services):
     return engine_records
 
 
-def phase_server(torch, fixtures, services, engine_records, tag="[5]"):
+@contextlib.contextmanager
+def _serving(services):
+    """A DetectionServer for ``services`` on 127.0.0.1 in a thread;
+    yields its port, and stops and joins it on exit (the engines stay
+    open: their owner closes them)."""
     import asyncio
 
-    from fastdet_tpu_torch.ops import plane_ingest
-    from fastdet_tpu_torch.ops import sparse_ingest as si
-    from fastdet_tpu_torch.runtime.client import DetectClient
     from fastdet_tpu_torch.runtime.server import DetectionServer
 
     server = DetectionServer(services, port=0, host="127.0.0.1")
@@ -773,38 +792,61 @@ def phase_server(torch, fixtures, services, engine_records, tag="[5]"):
             loop.close()
 
     thread = threading.Thread(target=serve, daemon=True, name="smoke-server")
-    si.LAUNCHES = plane_ingest.LAUNCHES = 0
     thread.start()
-    expect(ready.wait(30), "server did not start")
-    client = DetectClient("127.0.0.1", server.bound_port, path="full")
-    names = list(fixtures)
-    t0 = time.time()
     try:
-        client.open(timeout=10)
-        for i, n in enumerate(names):
-            client.request(i + 1, THR, fixtures[n])
-        replies = {n: client.wait_response(i + 1, timeout=30)
-                   for i, n in enumerate(names)}
+        expect(ready.wait(30), "server did not start")
+        yield server.bound_port
     finally:
-        client.close()
-        dt = time.time() - t0
         loop = state.get("loop")
-        if loop is not None:
+        if loop is not None and "task" in state:
             loop.call_soon_threadsafe(server.request_shutdown)
             loop.call_soon_threadsafe(state["task"].cancel)
         thread.join(30)
-    launches = {"B1": si.LAUNCHES, "B2": plane_ingest.LAUNCHES}
     expect(not thread.is_alive(), "server thread did not stop")
-    for n in names:
-        _, recs = replies[n]
+
+
+def _ask(port, path, frames, thr=THR, one_at_a_time=False):
+    """Send ``frames`` {name: jpeg} over loopback with the port's
+    DetectClient -> ({name: response records}, wall seconds)."""
+    from fastdet_tpu_torch.runtime.client import DetectClient
+
+    client = DetectClient("127.0.0.1", port, path=path)
+    names = list(frames)
+    t0 = time.time()
+    try:
+        client.open(timeout=10)
+        if one_at_a_time:
+            replies = {}
+            for i, n in enumerate(names):
+                client.request(i + 1, thr, frames[n])
+                replies[n] = client.wait_response(i + 1, timeout=60)[1]
+        else:
+            for i, n in enumerate(names):
+                client.request(i + 1, thr, frames[n])
+            replies = {n: client.wait_response(i + 1, timeout=30)[1]
+                       for i, n in enumerate(names)}
+    finally:
+        client.close()
+    return replies, time.time() - t0
+
+
+def phase_server(torch, fixtures, services, engine_records, tag="[5]"):
+    from fastdet_tpu_torch.ops import plane_ingest
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+
+    si.LAUNCHES = plane_ingest.LAUNCHES = 0
+    with _serving(services) as port:
+        replies, dt = _ask(port, "full", fixtures)
+    launches = {"B1": si.LAUNCHES, "B2": plane_ingest.LAUNCHES}
+    for n, recs in replies.items():
         _same_records(recs, engine_records[n], f"{n} server vs engine")
     svc = services["full"]
-    say(f"{tag} server: {len(names)} requests answered in {dt * 1e3:.1f} ms; "
-        f"every response matches the engine; ingest {svc.ingest}, "
+    say(f"{tag} server: {len(replies)} requests answered in {dt * 1e3:.1f} "
+        f"ms; every response matches the engine; ingest {svc.ingest}, "
         f"batches {svc.batch_hist}; launches {launches}")
     expect(launches["B1"] > 0 and launches["B2"] > 0,
            f"a kernel was not launched on the served path: {launches}")
-    return launches
+    return launches, replies
 
 
 # --------------------------------------------------------------------------
@@ -958,6 +1000,290 @@ def phase_int8(torch, fixtures, bf16_services, bf16_records):
             svc.engine.close()
 
 
+# --------------------------------------------------------------------------
+# Phase 8: the coefficient path
+# --------------------------------------------------------------------------
+
+def _encode_444(img):
+    """A 4:4:4 JPEG (chroma not subsampled) of ``img``: OpenCV where it
+    takes a sampling factor, else PIL."""
+    import io
+
+    try:
+        import cv2
+
+        ok, buf = cv2.imencode(
+            ".jpg", img[:, :, ::-1],
+            [int(cv2.IMWRITE_JPEG_QUALITY), 90,
+             int(cv2.IMWRITE_JPEG_SAMPLING_FACTOR),
+             int(cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)])
+        expect(ok, "cv2 could not encode a 4:4:4 frame")
+        return bytes(buf)
+    except (ImportError, AttributeError):
+        from PIL import Image
+
+        out = io.BytesIO()
+        Image.fromarray(img).save(out, format="JPEG", quality=90,
+                                  subsampling=0)
+        return out.getvalue()
+
+
+def phase_coeffs(torch, fixtures, services):
+    """The bf16 server engine's coefficient route (detect_async_jpeg:
+    host coefficients, device decode420_batch) against its sparse route
+    (B1) on the camera-clean fixtures: the same records, bit for bit."""
+    import numpy as np
+
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
+    from fastdet_tpu_torch.runtime import native_jpeg
+
+    eng = services["full"].engine
+    names = sorted(n for n in fixtures if n.startswith("scene"))
+    jpegs = [fixtures[n] for n in names]
+    walls = {"sparse": [], "coeffs": []}
+
+    def run(route, batch):
+        eng._tier_hint.clear()
+        thr = [THR] * len(batch)
+        t0 = time.perf_counter()
+        if route == "sparse":
+            res = eng.detect_async_sparse(batch, thr)
+            expect(res is not None and res.counts == {"sparse": len(batch)},
+                   f"scenes left the std tier: {res and res.counts}")
+        else:
+            res = eng.detect_async_jpeg(batch, thr)
+            expect(res is not None, "detect_async_jpeg refused the scenes")
+        wire = eng.fetch_wire(res, len(batch))
+        return wire, (time.perf_counter() - t0) * 1e3
+
+    si.LAUNCHES = 0
+    for rep in range(3):   # alternate which route runs first
+        order = ("sparse", "coeffs") if rep % 2 == 0 else ("coeffs", "sparse")
+        got = {}
+        for route in order:
+            got[route], ms = run(route, jpegs)
+            walls[route].append(ms)
+        expect(got["coeffs"] == got["sparse"],
+               "batch: coefficient-route records differ from the sparse "
+               "route's")
+    b1_launches = si.LAUNCHES
+    for n, d in zip(names, jpegs):
+        one = {r: run(r, [d])[0] for r in ("sparse", "coeffs")}
+        expect(one["coeffs"] == one["sparse"],
+               f"{n}: coefficient-route records differ from the sparse "
+               f"route's")
+    eng._tier_hint.clear()
+    dets = [len(w) // 10 for w in got["coeffs"]]
+    say(f"[8] detect_async_jpeg == detect_async_sparse bit for bit on "
+        f"{names} (bf16, batch of {len(names)} and one at a time; "
+        f"{dets} detections)")
+    for route, w in walls.items():
+        say(f"[8] {route} route, batch of {len(names)} (bucket "
+            f"{eng.bucket_for(len(names))}): host wall ms "
+            f"{[round(v, 3) for v in w]}")
+    say(f"[8] B1 launches over the 3 sparse batches: {b1_launches}")
+
+    img = jpeg_mod.decode_rgb(fixtures[names[0]])
+    f444 = _encode_444(img)
+    ci = native_jpeg.decode_coefficients(f444)
+    expect(not ci.is_420, "the 4:4:4 probe came out 4:2:0")
+    small = jpeg_mod.encode_rgb(np.ascontiguousarray(img[:224, :224]))
+    expect(eng.detect_async_jpeg([f444], [THR]) is None,
+           "detect_async_jpeg took a 4:4:4 frame")
+    expect(eng.detect_async_jpeg([small], [THR]) is None,
+           "detect_async_jpeg took a 224x224 frame")
+    say(f"[8] detect_async_jpeg returns None for a 4:4:4 frame (sampling "
+        f"{ci.hmax}x{ci.vmax}) and for a 224x224 frame")
+
+
+# --------------------------------------------------------------------------
+# Phase 9: checkpoint forms
+# --------------------------------------------------------------------------
+
+def _same_params(a, b) -> bool:
+    """Two unfolded parameter trees hold the same arrays."""
+    import numpy as np
+
+    if a.keys() != b.keys():
+        return False
+    for name, ea in a.items():
+        eb = b[name]
+        if ea.keys() != eb.keys():
+            return False
+        for k, v in ea.items():
+            pairs = ([(v[kk], eb[k][kk]) for kk in v] if isinstance(v, dict)
+                     else [(v, eb[k])])
+            if not all(np.array_equal(x, y) for x, y in pairs):
+                return False
+    return True
+
+
+def phase_checkpoints(torch, fixtures, npz_replies):
+    """weights/detect80_full.npz written as darknet .weights and as .onnx
+    (into a temporary directory) and served by one bf16 service each:
+    their responses to the seven fixtures must equal the .npz service's
+    ([5]) record for record. A second load of the .weights file must
+    take the .weights.npz cache."""
+    import shutil
+    import tempfile
+
+    from fastdet_tpu_torch.models import onnx_io, weights
+    from fastdet_tpu_torch.ops import plane_ingest
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.parallel import checkpoint
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    tmp = tempfile.mkdtemp(prefix="fastdet-ckpt-")
+    parses = []
+    real_parse, real_import = weights.parse_darknet_bytes, \
+        checkpoint.cached_import
+    loads = {}
+
+    def counting_parse(raw, spec):
+        parses.append(spec.name)
+        return real_parse(raw, spec)
+
+    def timed_import(path, *a, **k):
+        t0 = time.perf_counter()
+        out = real_import(path, *a, **k)
+        loads.setdefault(path, []).append(time.perf_counter() - t0)
+        return out
+
+    weights.parse_darknet_bytes = counting_parse
+    checkpoint.cached_import = timed_import
+    try:
+        spec, params = weights.load_model(WEIGHTS)
+        paths = {"darknet": os.path.join(tmp, "detect80_full.weights"),
+                 "onnx": os.path.join(tmp, "detect80_full.onnx")}
+        t0 = time.perf_counter()
+        weights.save_darknet(paths["darknet"], spec, params)
+        t1 = time.perf_counter()
+        onnx_io.save_onnx(paths["onnx"], spec, params)
+        t2 = time.perf_counter()
+        sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+        say(f"[9] wrote {sizes} bytes: save_darknet {t1 - t0:.3f} s, "
+            f"save_onnx {t2 - t1:.3f} s")
+        for form, path in paths.items():
+            si.LAUNCHES = plane_ingest.LAUNCHES = 0
+            services = build_services([f"full:80:{path}"], buckets=(8,))
+            try:
+                with _serving(services) as port:
+                    replies, dt = _ask(port, "full", fixtures)
+            finally:
+                services["full"].engine.close()
+            launches = {"B1": si.LAUNCHES, "B2": plane_ingest.LAUNCHES}
+            for n, recs in replies.items():
+                expect(recs == npz_replies[n],
+                       f"[9] {form}: {n} response differs from the .npz "
+                       f"service's: {recs[:3]} vs {npz_replies[n][:3]}")
+            say(f"[9] {form}: build_services(full:80:{os.path.basename(path)}"
+                f") loaded in {loads[path][0]:.3f} s; {len(replies)} responses "
+                f"over loopback equal the .npz service's record for record "
+                f"({sum(len(r) for r in replies.values())} records, "
+                f"{dt * 1e3:.1f} ms); launches {launches}")
+            expect(launches["B1"] > 0, f"[9] {form}: B1 was not launched")
+        first = len(parses)
+        expect(first > 0 and os.path.exists(paths["darknet"] + ".npz"),
+               "the first .weights load wrote no .weights.npz cache")
+        _, again = checkpoint.cached_import(paths["darknet"], num_classes=80)
+        expect(len(parses) == first,
+               "the second .weights load parsed the darknet file again")
+        expect(_same_params(again, params),
+               "the .weights.npz cache holds other arrays than the .npz")
+        dk = loads[paths["darknet"]]
+        say(f"[9] .weights loads: first {dk[0]:.3f} s ({first} darknet "
+            f"parses, tiny tried first; cache written), second "
+            f"{dk[1]:.3f} s from the .weights.npz cache (0 parses); its "
+            f"arrays equal the .npz's")
+    finally:
+        weights.parse_darknet_bytes = real_parse
+        checkpoint.cached_import = real_import
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# Phase 10: the held-out gate
+# --------------------------------------------------------------------------
+
+GATE_SEEDS = range(230100, 230148)     # held out from training (200000+)
+GATE_CALIB_SEEDS = range(240500, 240506)
+GATE_THR = 0.2
+GATE_RATE = 0.9
+# the frames the CPU engines of both packages fail, in bf16 and int8
+GATE_CPU_FAILING = [9, 10, 11, 13]
+
+
+def phase_gate(torch):
+    """tests/test_trained_detector80.py's gate through the port's server
+    on the card: 48 held-out scenes, q90 JPEGs, one request at a time at
+    threshold 0.2; a frame is ok when every planted object is matched.
+    In bf16 and int8, at least 0.9 of the frames are ok and none takes
+    the pixel route; the modes disagree on at most max(1, 48 // 10)."""
+    from fastdet_tpu_torch.data import synth
+    from fastdet_tpu_torch.ops import metrics, plane_ingest
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    t0 = time.perf_counter()
+    imgs, boxes, labels = synth.make_dataset(GATE_SEEDS, num_classes=80)
+    frames = {i: jpeg_mod.encode_rgb(im, quality=90)
+              for i, im in enumerate(imgs)}
+    calib = synth.make_dataset(GATE_CALIB_SEEDS, num_classes=80)[0]
+    say(f"[10] {len(frames)} held-out scenes (seeds {GATE_SEEDS.start}-"
+        f"{GATE_SEEDS.stop - 1}) and {len(calib)} calibration scenes made "
+        f"and encoded in {time.perf_counter() - t0:.2f} s")
+    ok_by_mode = {}
+    for mode in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        services = build_services(
+            [f"full:80:{WEIGHTS}"], mode=mode, buckets=(1, 2),
+            calibration_images=calib if mode == "int8" else None)
+        svc = services["full"]
+        build_s = time.perf_counter() - t0
+        try:
+            si.LAUNCHES = plane_ingest.LAUNCHES = 0
+            with _serving(services) as port:
+                replies, dt = _ask(port, "full", frames, thr=GATE_THR,
+                                   one_at_a_time=True)
+            launches = {"B1": si.LAUNCHES, "B2": plane_ingest.LAUNCHES}
+        finally:
+            svc.engine.close()
+        dets = [[(k, c / 255.0, x, y, w, h) for (k, c, x, y, w, h)
+                 in replies[i]] for i in range(len(frames))]
+        ok, matched, total, fps = [], 0, 0, 0
+        for d, bx, lb in zip(dets, boxes, labels):
+            m, t, fp = synth.match_detections(d, bx, lb)
+            ok.append(m == t)
+            matched, total, fps = matched + m, total + t, fps + fp
+        ev = metrics.evaluate_detections(dets, boxes, labels, 80)
+        failing = [i for i, o in enumerate(ok) if not o]
+        ok_by_mode[mode] = ok
+        say(f"[10] {mode}: {sum(ok)}/{len(ok)} frames ok "
+            f"({sum(ok) / len(ok):.4f}, bar {GATE_RATE}); objects "
+            f"{matched}/{total}; false positives {fps}; mAP@0.5 "
+            f"{float(ev['map'][0.5])!r}; ingest {svc.ingest}; batches "
+            f"{svc.batch_hist}; launches {launches}")
+        say(f"[10] {mode}: failing frames {failing} (seeds "
+            f"{[GATE_SEEDS[i] for i in failing]}; the CPU engines fail "
+            f"{GATE_CPU_FAILING}); {len(frames)} requests in "
+            f"{dt:.2f} s; build_services {build_s:.2f} s, calibration "
+            f"{svc.engine.calibration_s:.3f} s")
+        expect(svc.ingest["pixels"] == 0,
+               f"[10] {mode}: frames took the pixel route: {svc.ingest}")
+        expect(launches["B1"] > 0, f"[10] {mode}: B1 was not launched")
+        expect(sum(ok) >= GATE_RATE * len(ok),
+               f"[10] {mode}: only {sum(ok)}/{len(ok)} held-out frames "
+               f"fully localized ({matched}/{total} objects)")
+    diff = [i for i, (a, b) in enumerate(zip(ok_by_mode["bf16"],
+                                             ok_by_mode["int8"])) if a != b]
+    say(f"[10] bf16 and int8 disagree on {len(diff)} frames {diff} "
+        f"(limit {max(1, len(frames) // 10)})")
+    expect(len(diff) <= max(1, len(frames) // 10),
+           f"[10] bf16 and int8 disagree on {len(diff)} frames")
+
+
 def kernels_line(b1, b2, launches, d):
     def entry(name, src, replaces, res, n):
         ms, plain_ms, bound_ms = res["timing"][8]
@@ -1032,8 +1358,12 @@ def main(argv) -> int:
         f"{time.time() - t0:.1f} s")
     try:
         engine_records = phase_engine(torch, fixtures, services)
-        launches = phase_server(torch, fixtures, services, engine_records)
+        launches, replies = phase_server(torch, fixtures, services,
+                                         engine_records)
         phase_int8(torch, fixtures, services, engine_records)
+        phase_coeffs(torch, fixtures, services)
+        phase_checkpoints(torch, fixtures, replies)
+        phase_gate(torch)
     finally:
         for svc in services.values():
             svc.engine.close()

@@ -8,8 +8,9 @@ Reference grammar (server/server.py:330-350)::
 No positional args registers the DummyDetector at path 'detect'
 (server.py:359-360). ``-t interval`` (the reference's select timeout) is
 accepted for compatibility; the asyncio runtime needs no poll interval.
-``weights`` accepts fastdet .npz / ``synthetic[:arch]`` (darknet
-``.weights`` import is not ported yet). Engines run on the CUDA card.
+``weights`` accepts fastdet .npz, darknet ``.weights`` (converted once
+and cached beside it as ``.weights.npz``), ``.onnx`` and
+``synthetic[:arch]``. Engines run on the CUDA card.
 ``-m`` picks bf16 (the default), f32 or int8; int8 calibrates its
 activation scales at startup on the frames in FASTDET_CALIB_DIR, else on
 synthetic scenes.

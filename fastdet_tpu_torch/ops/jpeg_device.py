@@ -17,6 +17,9 @@ per frame and vmapped by the engine).
   by whole levels (device.strict_fp32).
 - The libjpeg "fancy" chroma upsample is integer shift arithmetic; the
   colour transform rounds half to even and clips to the uint8 grid.
+- :func:`decode420_batch` is the coefficient path's tail: the host ships
+  entropy-decoded int16 coefficients (native_jpeg.decode_coefficients)
+  and the same dequant, IDCT and colour run here.
 """
 
 from __future__ import annotations
@@ -158,23 +161,55 @@ def ycbcr_to_rgb01(y: torch.Tensor, cb: torch.Tensor,
     return torch.clamp(torch.round(rgb), 0.0, 255.0) * (1.0 / 255.0)
 
 
+def components_to_rgb01(ycoef: torch.Tensor, cbcoef: torch.Tensor,
+                        crcoef: torch.Tensor, qy: torch.Tensor,
+                        qcb: torch.Tensor, qcr: torch.Tensor, height: int,
+                        width: int, hs: int, vs: int) -> torch.Tensor:
+    """Dequant + IDCT + upsample + colour for a batch of frames: (B, *,
+    64) coefficients per component in raster order and (B, 64) quant
+    tables -> (B, H, W, 3) f32."""
+    yb_h, yb_w = height // 8, width // 8
+    cb_h, cb_w = height // vs // 8, width // hs // 8
+    ypix = plane_from_blocks(blocks_to_pixels(ycoef, qy), yb_h, yb_w)
+    cbp = plane_from_blocks(blocks_to_pixels(cbcoef, qcb), cb_h, cb_w)
+    crp = plane_from_blocks(blocks_to_pixels(crcoef, qcr), cb_h, cb_w)
+    return ycbcr_to_rgb01(ypix, upsample_chroma(cbp, hs, vs),
+                          upsample_chroma(crp, hs, vs))
+
+
 def coeffs_to_rgb01(coeff: torch.Tensor, qy: torch.Tensor,
                     qcb: torch.Tensor, qcr: torch.Tensor, height: int,
                     width: int, hs: int, vs: int) -> torch.Tensor:
-    """Dequant + IDCT + upsample + colour for a batch of frames' dense
-    blocks: (B, NB, 64) coefficients in Y|Cb|Cr raster order -> (B, H, W,
-    3) f32. ``qcr`` may differ from ``qcb`` (3-table JPEGs are legal)."""
-    yb_h, yb_w = height // 8, width // 8
-    cb_h, cb_w = height // vs // 8, width // hs // 8
-    nyb, ncb = yb_h * yb_w, cb_h * cb_w
-    ypix = plane_from_blocks(blocks_to_pixels(coeff[:, :nyb], qy),
-                             yb_h, yb_w)
-    cbp = plane_from_blocks(
-        blocks_to_pixels(coeff[:, nyb:nyb + ncb], qcb), cb_h, cb_w)
-    crp = plane_from_blocks(
-        blocks_to_pixels(coeff[:, nyb + ncb:], qcr), cb_h, cb_w)
-    return ycbcr_to_rgb01(ypix, upsample_chroma(cbp, hs, vs),
-                          upsample_chroma(crp, hs, vs))
+    """:func:`components_to_rgb01` of (B, NB, 64) coefficients in
+    Y|Cb|Cr raster order. ``qcr`` may differ from ``qcb`` (3-table JPEGs
+    are legal)."""
+    nyb = (height // 8) * (width // 8)
+    ncb = (height // vs // 8) * (width // hs // 8)
+    return components_to_rgb01(coeff[:, :nyb], coeff[:, nyb:nyb + ncb],
+                               coeff[:, nyb + ncb:], qy, qcb, qcr, height,
+                               width, hs, vs)
+
+
+def decode420_batch(ycoef: torch.Tensor, cbcoef: torch.Tensor,
+                    crcoef: torch.Tensor, qy: torch.Tensor, qc: torch.Tensor,
+                    height: int, width: int) -> torch.Tensor:
+    """Device decode of a batch of 4:2:0 frames (the coefficient path):
+    (B, Yb, 64) / (B, Cb, 64) int16 coefficients in natural order and
+    (B, 64) tables -> (B, H, W, 3) f32 RGB in [0, 1]. One chroma table
+    ``qc`` dequantizes both Cb and Cr (native_jpeg.CoeffImage carries
+    one; the host refuses files whose Cb and Cr tables differ). H and W
+    are multiples of 16."""
+    return components_to_rgb01(ycoef, cbcoef, crcoef, qy, qc, qc, height,
+                               width, 2, 2)
+
+
+def decode420(ycoef: torch.Tensor, cbcoef: torch.Tensor,
+              crcoef: torch.Tensor, qy: torch.Tensor, qc: torch.Tensor,
+              height: int, width: int) -> torch.Tensor:
+    """:func:`decode420_batch` of one frame: (Yb, 64) / (Cb, 64) and
+    (64,) tables -> (H, W, 3)."""
+    return decode420_batch(ycoef[None], cbcoef[None], crcoef[None],
+                           qy[None], qc[None], height, width)[0]
 
 
 # ---------------------------------------------------------------------------

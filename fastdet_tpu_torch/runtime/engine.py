@@ -28,8 +28,12 @@ Engine properties kept from the JAX engine:
   activation scales on the canonical graph first, then rewrites, then
   quantizes (models/quantize.py), as the JAX engine does.
 
-Left for later: the coefficient path (_pipeline_coeffs), lazy background
-warmup and the multi-device dp mesh.
+- **Ingest routes.** detect_async_sparse (the server's), detect_async_planes,
+  detect_async_jpeg (host entropy decode into int16 coefficients, device
+  dequant + IDCT + colour: the coefficient path) and detect_async (host
+  pixels).
+
+Left for later: lazy background warmup and the multi-device dp mesh.
 """
 
 from __future__ import annotations
@@ -402,6 +406,15 @@ class DetectionEngine:
         """The per-frame f32 LE threshold in a packed row's tail."""
         return packed[:, start:start + 4].contiguous().view(
             torch.float32)[:, 0]
+
+    def _pipeline_coeffs(self, ycoef, cbcoef, crcoef, qy, qc,
+                         thresholds):
+        """Coefficient path: the host entropy-decodes, the device runs
+        dequant + IDCT + upsample + colour (decode420_batch) and the net."""
+        size = self.spec.image_size
+        x = jpeg_device.decode420_batch(ycoef, cbcoef, crcoef, qy, qc,
+                                        size, size)
+        return self._postprocess_tail(x, thresholds)
 
     def _pipeline_planes(self, packed: torch.Tensor, layout=(2, 2)):
         """Host Huffman + IDCT (native), device upsample + colour + net:
@@ -831,6 +844,48 @@ class DetectionEngine:
         thr = np.full((b,), 2.0, np.float32)  # padded slots: empty result
         thr[:n] = np.asarray(thresholds, np.float32)
         return self._dispatch_async(self._pipeline, batch, thr)
+
+    def detect_async_jpeg(self, jpegs: Sequence[bytes],
+                          thresholds: Sequence[float]):
+        """Dispatch via the coefficient path (host entropy decode, device
+        dequant + IDCT + colour); returns a Future like detect_async.
+
+        Returns None when the path does not apply: the model size is not
+        a multiple of 16, the native decoder is missing, or any frame is
+        not a 3-component 4:2:0 JPEG at the model size (one chroma
+        table). The caller then takes another route."""
+        n = len(jpegs)
+        if not 0 < n <= self.max_batch:
+            raise ValueError(f"batch of {n} frames; this engine takes "
+                             f"1..{self.max_batch}")
+        size = self.spec.image_size
+        if size % 16 != 0 or not native_jpeg.available():
+            return None
+        try:
+            cis = [native_jpeg.decode_coefficients(
+                d, expected_size=(size, size)) for d in jpegs]
+        except (ValueError, native_jpeg.NativeJpegUnavailable):
+            return None
+        for ci in cis:
+            if not ci.is_420 or (ci.width, ci.height) != (size, size):
+                return None
+        b = self.bucket_for(n)
+        yb, cb = (size // 8) ** 2, (size // 16) ** 2
+        ycoef = np.zeros((b, yb, 64), np.int16)
+        cbcoef = np.zeros((b, cb, 64), np.int16)
+        crcoef = np.zeros((b, cb, 64), np.int16)
+        qy = np.ones((b, 64), np.float32)
+        qc = np.ones((b, 64), np.float32)
+        for i, ci in enumerate(cis):
+            ycoef[i] = ci.ycoef
+            cbcoef[i] = ci.cbcoef
+            crcoef[i] = ci.crcoef
+            qy[i] = ci.qy
+            qc[i] = ci.qc
+        thr = np.full((b,), 2.0, np.float32)  # padded slots: empty result
+        thr[:n] = np.asarray(thresholds, np.float32)
+        return self._dispatch_async(self._pipeline_coeffs, ycoef, cbcoef,
+                                    crcoef, qy, qc, thr)
 
     def fetch(self, res, n: int) -> List[List[ResultTuple]]:
         """Wait for a dispatch and convert its first n images to result

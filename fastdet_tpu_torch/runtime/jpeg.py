@@ -1,4 +1,4 @@
-"""Host-side JPEG decode for the frame path.
+"""Host-side JPEG decode for the frame path, and encode for clients.
 
 The reference decodes with Pillow/libjpeg inside perform()
 (server/detector.py:128-133). The port picks its decoder as the JAX
@@ -19,6 +19,9 @@ On a machine with neither OpenCV nor PIL, ``auto`` and ``cv2`` decode
 natively and log that once. The pixels then differ from the reference's:
 on testdata/scene1.jpg 2.7 % of the values, by up to 3 levels.
 :data:`LAST_DECODER` names the decoder of the last successful call.
+
+:func:`encode_rgb` (a client and test utility) encodes with OpenCV, else
+PIL, in the same backend order; there is no native encoder.
 """
 
 from __future__ import annotations
@@ -108,3 +111,22 @@ def decode_rgb(data: bytes) -> np.ndarray:
                         f"installed: {e}") from None
     LAST_DECODER = "native"
     return img
+
+
+def encode_rgb(img: np.ndarray, quality: int = 90) -> bytes:
+    """Encode an RGB uint8 (H, W, 3) array to JPEG at ``quality``
+    (OpenCV's and PIL's defaults both subsample chroma 4:2:0)."""
+    cv2 = _cv2() if _BACKEND in ("auto", "cv2") else None
+    if cv2 is not None:
+        ok, buf = cv2.imencode(
+            ".jpg", np.ascontiguousarray(img[:, :, ::-1]),
+            [int(cv2.IMWRITE_JPEG_QUALITY), quality])
+        if not ok:
+            raise JpegError("JPEG encode failed")
+        return bytes(buf)
+    image = _pil_image()
+    if image is None:
+        raise JpegError("JPEG encode needs cv2 or PIL")
+    out = io.BytesIO()
+    image.fromarray(img).save(out, format="JPEG", quality=quality)
+    return out.getvalue()

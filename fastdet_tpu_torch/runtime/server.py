@@ -672,7 +672,9 @@ def build_services(
 ) -> Dict[str, object]:
     """Build {path: service} from reference-style ``name:num_classes:path``
     registry arguments (server.py:354-358); empty -> {'detect': dummy}
-    (server.py:359-360). Engines run on ``device`` (the card unless the
+    (server.py:359-360). ``path`` is any weights.load_model form (.npz,
+    darknet .weights cached as .weights.npz, .onnx, synthetic[:arch]).
+    Engines run on ``device`` (the card unless the
     caller asks for the CPU), with the engine's default batch buckets
     unless ``buckets`` is given; ``mode="int8"`` engines calibrate on
     ``calibration_images`` ((N, H, W, 3) uint8) when given.
@@ -681,12 +683,12 @@ def build_services(
     if not registry_args:
         services["detect"] = DetectorService(DummyDetector(dbgout=dbgout))
         return services
-    from fastdet_tpu_torch.models import weights
+    from fastdet_tpu_torch.parallel.checkpoint import cached_import
     from fastdet_tpu_torch.runtime.engine import DetectionEngine
 
     for arg in registry_args:
         (name, num_classes, path) = arg.split(":", 2)
-        spec, params = weights.load_model(path, num_classes=int(num_classes))
+        spec, params = cached_import(path, num_classes=int(num_classes))
         kw = {} if buckets is None else {"buckets": buckets}
         engine = DetectionEngine(spec, params, mode=mode, device=device,
                                  calibration_images=calibration_images,

@@ -114,11 +114,9 @@ def test_pixel_path_pads_and_rejects_wrong_size(port_engine):
         port_engine.detect([np.zeros((8, 8, 3), np.uint8)], [0.5])
 
 
-def test_int8_mode_not_yet_ported(native_ready):
-    """The name is the first slice's, where ``-m int8`` raised; it is kept
-    so the test's record carries over. The server's int8 mode now builds
-    an int8 engine (tiny: no s2d stem to rewrite) that answers frames
-    through the sparse ingest."""
+def test_int8_mode_serves(native_ready):
+    """The server's int8 mode builds an int8 engine (tiny: no s2d stem to
+    rewrite) that answers frames through the sparse ingest."""
     from fastdet_tpu_torch.models import quantize
     from fastdet_tpu_torch.runtime import jpeg
 

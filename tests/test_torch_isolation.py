@@ -32,7 +32,10 @@ def _top_level_imports(path):
 def test_no_jax_or_jax_package_imports(path):
     assert not _top_level_imports(path) & set(BLOCKED)
     text = path.read_text()
-    assert "/root/" not in text and "cached_import" not in text
+    # the port loads registry paths through its own
+    # fastdet_tpu_torch.parallel.checkpoint.cached_import; naming the JAX
+    # package's module (fastdet_tpu.parallel.checkpoint) is refused
+    assert "/root/" not in text and "fastdet_tpu.parallel" not in text
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -54,7 +57,8 @@ def test_every_module_imports_with_jax_blocked():
         for m in mods:
             importlib.import_module(m)
         for m in ("ops.ingest_stages", "models.quantize", "models.s2d",
-                  "tools.debug_ingest"):
+                  "tools.debug_ingest", "parallel.checkpoint",
+                  "models.onnx_io", "data.synth", "ops.metrics"):
             assert "fastdet_tpu_torch." + m in mods, m
         import chip_smoke
         try:

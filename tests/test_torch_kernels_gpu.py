@@ -276,3 +276,33 @@ def test_int_mm_route_matches_split_route(c, o, k, stride, pad):
                                 o)
     want = quantize.conv_int8_split(xq, w_q, stride, pad)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_coeff_route_equals_sparse_route_on_card(mode):
+    """The coefficient route (host coefficients, device decode420_batch)
+    and the sparse route (B1 on the packed rows) reach the same
+    coefficients, so their records are equal, batched and one at a
+    time."""
+    from fastdet_tpu_torch.models import weights
+
+    dev = _card()
+    spec, params = weights.load_model("synthetic:tiny", num_classes=80)
+    eng = eng_mod.DetectionEngine(spec, params, mode=mode, buckets=(1, 4),
+                                  device=dev)
+    try:
+        datas = [(TESTDATA / f"scene{i}.jpg").read_bytes() for i in (1, 2, 3)]
+        for batch in [datas] + [[d] for d in datas]:
+            thr = [0.3] * len(batch)
+            eng._tier_hint.clear()
+            launches = si.LAUNCHES
+            sparse = eng.detect_async_sparse(batch, thr)
+            want = eng.fetch_wire(sparse, len(batch))
+            assert sparse.counts == {"sparse": len(batch)}
+            assert si.LAUNCHES > launches
+            got = eng.fetch_wire(eng.detect_async_jpeg(batch, thr),
+                                 len(batch))
+            assert got == want
+    finally:
+        eng.close()
