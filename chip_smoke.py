@@ -62,6 +62,26 @@ Drives the port's main path end to end and checks every kernel on it:
      with every object matched, no frame on the pixel route, the modes
      disagreeing on at most 4 frames; frames ok, failing frames, objects
      matched, false positives and mAP@0.5 are printed;
+ 11. the client side: client_api.LocalDetector over the bf16 engine of
+     [4] (its objects equal the engine's records mapped to UV),
+     RemoteDetector and cli.client -n 3 against a loopback server of
+     [5]'s model (the seven fixtures answered, none on the pixel route,
+     B1 launched server-side, counted from the first frame),
+     cli.detector (records equal to a bf16 engine's detect_one), cli.httpserver
+     (200 echo, 404, zero-byte HEAD), cli.demo oneshot on the card into a
+     temporary directory, cli.inspect_weights on the checkpoint (every
+     conv, the total equal to the leaves' sizes);
+ 12. training at full width (full:80, 416x416): (a) one f32 step from the
+     checkpoint at batch 2, dense and sparse loss, against the same step
+     on the CPU and, tensor by tensor, against the step in float64; (b) 20 bf16 steps from synthetic weights on a fixed
+     batch of 8 synthetic scenes with flips, whose loss must fall by 10 %;
+     (c) step ms, images/s, peak memory and the share of the bf16 peak at
+     batch 16 in f32 and bf16; (d) save -> restore gives the saved state
+     (parameters, BN statistics, Adam moments) bit for bit, and one more
+     step equals the uninterrupted run, and the export of a zero-step state serves the
+     fixtures with [5]'s records byte for byte; (e) cli.train with a
+     checkpoint and --resume, then 30 bf16 fine-tune steps and the gate
+     of [10] on their export, printed and not checked;
 
 then prints the card line, the kernels line and, last, the result line.
 It exits nonzero with no result line when no CUDA card is present, when
@@ -75,6 +95,7 @@ import argparse
 import contextlib
 import faulthandler
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -799,8 +820,11 @@ def _serving(services):
     finally:
         loop = state.get("loop")
         if loop is not None and "task" in state:
-            loop.call_soon_threadsafe(server.request_shutdown)
-            loop.call_soon_threadsafe(state["task"].cancel)
+            # one callback: after request_shutdown the serve task may end
+            # and the loop close before a second call could be scheduled
+            task = state["task"]
+            loop.call_soon_threadsafe(
+                lambda: (server.request_shutdown(), task.cancel()))
         thread.join(30)
     expect(not thread.is_alive(), "server thread did not stop")
 
@@ -1165,10 +1189,10 @@ def phase_checkpoints(torch, fixtures, npz_replies):
         say(f"[9] wrote {sizes} bytes: save_darknet {t1 - t0:.3f} s, "
             f"save_onnx {t2 - t1:.3f} s")
         for form, path in paths.items():
-            si.LAUNCHES = plane_ingest.LAUNCHES = 0
             services = build_services([f"full:80:{path}"], buckets=(8,))
             try:
                 with _serving(services) as port:
+                    si.LAUNCHES = plane_ingest.LAUNCHES = 0
                     replies, dt = _ask(port, "full", fixtures)
             finally:
                 services["full"].engine.close()
@@ -1214,74 +1238,670 @@ GATE_RATE = 0.9
 GATE_CPU_FAILING = [9, 10, 11, 13]
 
 
+def _gate_frames():
+    """The gate's 48 held-out scenes as q90 JPEGs, with their boxes and
+    labels, and its int8 calibration scenes."""
+    from fastdet_tpu_torch.data import synth
+    from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
+
+    imgs, boxes, labels = synth.make_dataset(GATE_SEEDS, num_classes=80)
+    frames = {i: jpeg_mod.encode_rgb(im, quality=90)
+              for i, im in enumerate(imgs)}
+    calib = synth.make_dataset(GATE_CALIB_SEEDS, num_classes=80)[0]
+    return frames, boxes, labels, calib
+
+
+def _gate_run(torch, weights_path, mode, gate, tag="[10]"):
+    """One service of ``weights_path`` in ``mode`` answers the gate's
+    frames over loopback, one request at a time; prints and returns
+    {"ok": per-frame bool, "matched", "total", "ingest", "launches"}."""
+    from fastdet_tpu_torch.data import synth
+    from fastdet_tpu_torch.ops import metrics, plane_ingest
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    frames, boxes, labels, calib = gate
+    t0 = time.perf_counter()
+    services = build_services(
+        [f"full:80:{weights_path}"], mode=mode, buckets=(1, 2),
+        calibration_images=calib if mode == "int8" else None)
+    svc = services["full"]
+    build_s = time.perf_counter() - t0
+    try:
+        si.LAUNCHES = plane_ingest.LAUNCHES = 0
+        with _serving(services) as port:
+            replies, dt = _ask(port, "full", frames, thr=GATE_THR,
+                               one_at_a_time=True)
+        launches = {"B1": si.LAUNCHES, "B2": plane_ingest.LAUNCHES}
+    finally:
+        svc.engine.close()
+    dets = [[(k, c / 255.0, x, y, w, h) for (k, c, x, y, w, h)
+             in replies[i]] for i in range(len(frames))]
+    ok, matched, total, fps = [], 0, 0, 0
+    for d, bx, lb in zip(dets, boxes, labels):
+        m, t, fp = synth.match_detections(d, bx, lb)
+        ok.append(m == t)
+        matched, total, fps = matched + m, total + t, fps + fp
+    ev = metrics.evaluate_detections(dets, boxes, labels, 80)
+    failing = [i for i, o in enumerate(ok) if not o]
+    say(f"{tag} {mode}: {sum(ok)}/{len(ok)} frames ok "
+        f"({sum(ok) / len(ok):.4f}, bar {GATE_RATE}); objects "
+        f"{matched}/{total}; false positives {fps}; mAP@0.5 "
+        f"{float(ev['map'][0.5])!r}; ingest {svc.ingest}; batches "
+        f"{svc.batch_hist}; launches {launches}")
+    say(f"{tag} {mode}: failing frames {failing} (seeds "
+        f"{[GATE_SEEDS[i] for i in failing]}; the CPU engines fail "
+        f"{GATE_CPU_FAILING}); {len(frames)} requests in "
+        f"{dt:.2f} s; build_services {build_s:.2f} s, calibration "
+        f"{svc.engine.calibration_s:.3f} s")
+    return {"ok": ok, "matched": matched, "total": total,
+            "ingest": dict(svc.ingest), "launches": launches}
+
+
 def phase_gate(torch):
     """tests/test_trained_detector80.py's gate through the port's server
     on the card: 48 held-out scenes, q90 JPEGs, one request at a time at
     threshold 0.2; a frame is ok when every planted object is matched.
     In bf16 and int8, at least 0.9 of the frames are ok and none takes
-    the pixel route; the modes disagree on at most max(1, 48 // 10)."""
-    from fastdet_tpu_torch.data import synth
-    from fastdet_tpu_torch.ops import metrics, plane_ingest
-    from fastdet_tpu_torch.ops import sparse_ingest as si
-    from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
-    from fastdet_tpu_torch.runtime.server import build_services
-
+    the pixel route; the modes disagree on at most max(1, 48 // 10).
+    Returns the frames and the frames ok per mode."""
     t0 = time.perf_counter()
-    imgs, boxes, labels = synth.make_dataset(GATE_SEEDS, num_classes=80)
-    frames = {i: jpeg_mod.encode_rgb(im, quality=90)
-              for i, im in enumerate(imgs)}
-    calib = synth.make_dataset(GATE_CALIB_SEEDS, num_classes=80)[0]
+    gate = _gate_frames()
+    frames = gate[0]
     say(f"[10] {len(frames)} held-out scenes (seeds {GATE_SEEDS.start}-"
-        f"{GATE_SEEDS.stop - 1}) and {len(calib)} calibration scenes made "
+        f"{GATE_SEEDS.stop - 1}) and {len(gate[3])} calibration scenes made "
         f"and encoded in {time.perf_counter() - t0:.2f} s")
     ok_by_mode = {}
     for mode in ("bf16", "int8"):
-        t0 = time.perf_counter()
-        services = build_services(
-            [f"full:80:{WEIGHTS}"], mode=mode, buckets=(1, 2),
-            calibration_images=calib if mode == "int8" else None)
-        svc = services["full"]
-        build_s = time.perf_counter() - t0
-        try:
-            si.LAUNCHES = plane_ingest.LAUNCHES = 0
-            with _serving(services) as port:
-                replies, dt = _ask(port, "full", frames, thr=GATE_THR,
-                                   one_at_a_time=True)
-            launches = {"B1": si.LAUNCHES, "B2": plane_ingest.LAUNCHES}
-        finally:
-            svc.engine.close()
-        dets = [[(k, c / 255.0, x, y, w, h) for (k, c, x, y, w, h)
-                 in replies[i]] for i in range(len(frames))]
-        ok, matched, total, fps = [], 0, 0, 0
-        for d, bx, lb in zip(dets, boxes, labels):
-            m, t, fp = synth.match_detections(d, bx, lb)
-            ok.append(m == t)
-            matched, total, fps = matched + m, total + t, fps + fp
-        ev = metrics.evaluate_detections(dets, boxes, labels, 80)
-        failing = [i for i, o in enumerate(ok) if not o]
-        ok_by_mode[mode] = ok
-        say(f"[10] {mode}: {sum(ok)}/{len(ok)} frames ok "
-            f"({sum(ok) / len(ok):.4f}, bar {GATE_RATE}); objects "
-            f"{matched}/{total}; false positives {fps}; mAP@0.5 "
-            f"{float(ev['map'][0.5])!r}; ingest {svc.ingest}; batches "
-            f"{svc.batch_hist}; launches {launches}")
-        say(f"[10] {mode}: failing frames {failing} (seeds "
-            f"{[GATE_SEEDS[i] for i in failing]}; the CPU engines fail "
-            f"{GATE_CPU_FAILING}); {len(frames)} requests in "
-            f"{dt:.2f} s; build_services {build_s:.2f} s, calibration "
-            f"{svc.engine.calibration_s:.3f} s")
-        expect(svc.ingest["pixels"] == 0,
-               f"[10] {mode}: frames took the pixel route: {svc.ingest}")
-        expect(launches["B1"] > 0, f"[10] {mode}: B1 was not launched")
+        r = _gate_run(torch, WEIGHTS, mode, gate)
+        ok = ok_by_mode[mode] = r["ok"]
+        expect(r["ingest"]["pixels"] == 0,
+               f"[10] {mode}: frames took the pixel route: {r['ingest']}")
+        expect(r["launches"]["B1"] > 0, f"[10] {mode}: B1 was not launched")
         expect(sum(ok) >= GATE_RATE * len(ok),
                f"[10] {mode}: only {sum(ok)}/{len(ok)} held-out frames "
-               f"fully localized ({matched}/{total} objects)")
+               f"fully localized ({r['matched']}/{r['total']} objects)")
     diff = [i for i, (a, b) in enumerate(zip(ok_by_mode["bf16"],
                                              ok_by_mode["int8"])) if a != b]
     say(f"[10] bf16 and int8 disagree on {len(diff)} frames {diff} "
         f"(limit {max(1, len(frames) // 10)})")
     expect(len(diff) <= max(1, len(frames) // 10),
            f"[10] bf16 and int8 disagree on {len(diff)} frames")
+    return gate, {m: sum(ok) for m, ok in ok_by_mode.items()}
+
+
+# --------------------------------------------------------------------------
+# Phase 11: the client side on the card
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _diag_server():
+    """cli.httpserver's DiagServer on a free port of 127.0.0.1 in a
+    thread; yields the port, and cancels and joins it on exit."""
+    import asyncio
+
+    from fastdet_tpu_torch.cli import httpserver
+
+    srv = httpserver.DiagServer(host="127.0.0.1", port=0)
+    loop = asyncio.new_event_loop()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(srv.serve())
+        except asyncio.CancelledError:
+            pass
+
+    thread = threading.Thread(target=run, daemon=True, name="smoke-diag")
+    thread.start()
+    try:
+        deadline = time.time() + 10
+        while srv.bound_port is None and time.time() < deadline:
+            time.sleep(0.01)
+        expect(srv.bound_port is not None, "httpserver did not start")
+        yield srv.bound_port
+    finally:
+        loop.call_soon_threadsafe(
+            lambda: [t.cancel() for t in asyncio.all_tasks(loop)])
+        thread.join(10)
+    expect(not thread.is_alive(), "httpserver thread did not stop")
+    loop.close()
+
+
+def _captured(fn, *args, **kw):
+    """(fn's return value, what it printed to stdout)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args, **kw)
+    return rc, buf.getvalue()
+
+
+def phase_client(torch, fixtures, services):
+    """The client API and the CLIs on the card: LocalDetector over the
+    bf16 engine of [4] (objects equal the engine's records mapped to UV),
+    RemoteDetector and cli.client -n 3 against a loopback server of
+    [5]'s model (answers for the seven fixtures, B1 launched server-side),
+    cli.detector (records equal to a bf16 engine's detect_one), cli.httpserver
+    (200 / 404 / zero-byte HEAD), cli.demo oneshot local into a temporary
+    directory, cli.inspect_weights on the checkpoint (75 convs, the
+    total equal to the leaves' sizes)."""
+    import ast
+    import re
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from fastdet_tpu_torch import client_api
+    from fastdet_tpu_torch.cli import client as client_cli
+    from fastdet_tpu_torch.cli import demo, detector, inspect_weights
+    from fastdet_tpu_torch.models import weights
+    from fastdet_tpu_torch.ops import plane_ingest
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
+    from fastdet_tpu_torch.runtime.engine import DetectionEngine
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    eng = services["full"].engine
+    scenes = sorted(n for n in fixtures if n.startswith("scene"))
+    scene_paths = [os.path.join(REPO, "testdata", n) for n in scenes]
+    imgs = [jpeg_mod.decode_rgb(fixtures[n]) for n in scenes]
+
+    # LocalDetector: one engine batch of the three letterboxed scenes
+    det = client_api.LocalDetector(eng)
+    got = {}
+    det.on_result = lambda r: got.__setitem__(r.request_id, r)
+    t0 = time.perf_counter()
+    ids = [det.process_image(im, threshold=THR) for im in imgs]
+    while det.num_pending_requests:
+        det.update()
+    local_ms = (time.perf_counter() - t0) * 1e3
+    want = eng.detect([client_api.letterbox(im) for im in imgs],
+                      [THR] * len(imgs))
+    size = client_api.IMAGE_SIZE
+    for n, i, recs in zip(scenes, ids, want):
+        objs = [(o.klass, o.conf, o.bbox) for o in got[i].objects]
+        expect(objs == [(k, c, (0.0 + (x / size) * 1.0, 0.0 + (y / size)
+                                * 1.0, (w / size) * 1.0, (h / size) * 1.0))
+                        for k, c, x, y, w, h in recs],
+               f"[11] LocalDetector {n}: objects differ from the engine's "
+               f"records")
+    say(f"[11] LocalDetector (bf16 engine of [4], bucket 8): {scenes} -> "
+        f"{[len(got[i].objects) for i in ids]} objects, equal to the "
+        f"engine's detect records mapped to UV; {local_ms:.1f} ms for the "
+        f"three")
+
+    # RemoteDetector and cli.client -n 3 against a loopback server of the
+    # same model as [5]'s (a ModelService's queue belongs to the event
+    # loop that first served it, so [5]'s services are not served again)
+    remote = {}
+    remote_services = build_services([f"full:80:{WEIGHTS}"], buckets=(8,))
+    svc = remote_services["full"]
+    try:
+        with _serving(remote_services) as port:
+            det = client_api.RemoteDetector(f"rtsp://127.0.0.1:{port}/full")
+            det.on_result = lambda r: remote.__setitem__(r.request_id, r)
+            # counted from here: build_services' warm-up launched B1 too
+            si.LAUNCHES = plane_ingest.LAUNCHES = 0
+            try:
+                t0 = time.perf_counter()
+                for data in fixtures.values():
+                    det.process_image(jpeg_mod.decode_rgb(data),
+                                      threshold=THR)
+                deadline = time.time() + 30
+                while len(remote) < len(fixtures) and time.time() < deadline:
+                    det.update()
+                    time.sleep(0.002)
+                remote_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                det.close()
+            launches = {"B1": si.LAUNCHES, "B2": plane_ingest.LAUNCHES}
+            ingest = dict(svc.ingest)
+            rc = client_cli.main(["client", "-t", "0.01", "-n", "3",
+                                  f"rtsp://127.0.0.1:{port}/full",
+                                  scene_paths[0]])
+        served = sum(svc.batch_hist.values())
+    finally:
+        svc.engine.close()
+    expect(sorted(remote) == list(range(1, len(fixtures) + 1)),
+           f"[11] RemoteDetector: answers for {sorted(remote)}")
+    sparse = sum(v for k, v in ingest.items() if k.startswith("sparse"))
+    expect(ingest["pixels"] == 0 and sparse > 0
+           and sparse + ingest["planes"] == len(fixtures),
+           f"[11] RemoteDetector: the frames' routes {ingest}")
+    expect(launches["B1"] > 0 and (launches["B2"] > 0) == (
+        ingest["planes"] > 0),
+        f"[11] RemoteDetector: launches {launches} for routes {ingest}")
+    expect(rc == 0, f"[11] cli.client returned {rc}")
+    say(f"[11] RemoteDetector over loopback: {len(remote)} fixtures "
+        f"answered in {remote_ms:.1f} ms "
+        f"({[len(r.objects) for _, r in sorted(remote.items())]} objects); "
+        f"server-side ingest {ingest}, launches {launches} (counted from "
+        f"the first frame); then cli.client -n 3 exited 0 ({served} "
+        f"batches served in all)")
+
+    # cli.detector against a bf16 engine's detect_one
+    t0 = time.perf_counter()
+    rc, out = _captured(detector.main, ["detector", "-t", str(THR),
+                                        WEIGHTS] + scene_paths)
+    cli_s = time.perf_counter() - t0
+    expect(rc == 0, f"[11] cli.detector returned {rc}")
+    lines = out.strip().splitlines()
+    expect(len(lines) == len(scenes), f"[11] cli.detector printed {out!r}")
+    spec, params = weights.load_model(WEIGHTS)
+    ref = DetectionEngine(spec, params, buckets=(1,))
+    try:
+        walls = []
+        for n, im, line in zip(scenes, imgs, lines):
+            dt, _, rest = line.partition(" ")
+            walls.append(float(dt))
+            expect(ast.literal_eval(rest) == ref.detect_one(im, THR),
+                   f"[11] cli.detector {n}: records differ from "
+                   f"detect_one's")
+    finally:
+        ref.close()
+    say(f"[11] cli.detector (bf16, bucket 1 warmed): records equal "
+        f"detect_one's on {scenes}; printed walls {walls} s; the whole "
+        f"CLI {cli_s:.2f} s")
+
+    # cli.httpserver
+    with _diag_server() as port:
+        base = f"http://127.0.0.1:{port}"
+        body = urllib.request.urlopen(base + "/", timeout=10).read()
+        expect(body.startswith(b"('GET / HTTP/1.1'"),
+               f"[11] httpserver GET /: {body[:80]!r}")
+        try:
+            urllib.request.urlopen(base + "/nope", timeout=10)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        expect(code == 404, f"[11] httpserver GET /nope: {code}")
+        import socket
+
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as c:
+            c.sendall(b"HEAD / HTTP/1.1\r\nHost: x\r\n\r\n")
+            head = c.recv(1024)
+        expect(head == b"", f"[11] httpserver HEAD answered {head!r}")
+    say("[11] cli.httpserver: GET / 200 echo, 404, HEAD zero bytes")
+
+    # cli.demo oneshot, local mode, into a temporary directory
+    tmp = tempfile.mkdtemp(prefix="fastdet-demo-")
+    try:
+        t0 = time.perf_counter()
+        rc = demo.main(["demo", "-w", WEIGHTS, "-c", "80", "-o", tmp]
+                       + scene_paths)
+        demo_s = time.perf_counter() - t0
+        expect(rc == 0, f"[11] cli.demo returned {rc}")
+        drawn = 0
+        for n, im in zip(scenes, imgs):
+            path = os.path.join(tmp, n)
+            expect(os.path.exists(path), f"[11] cli.demo wrote no {n}")
+            out_img = jpeg_mod.decode_rgb(open(path, "rb").read())
+            expect(out_img.shape == im.shape, f"[11] cli.demo {n} shape")
+            drawn += bool(np.abs(out_img.astype(int) - im.astype(int))
+                          .max() > 100)
+        expect(drawn > 0, "[11] cli.demo drew no box")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"[11] cli.demo oneshot local (bf16): {len(scenes)} annotated "
+        f"images written, {drawn} with boxes drawn, {demo_s:.2f} s")
+
+    # cli.inspect_weights on the checkpoint
+    rc, out = _captured(inspect_weights.main, ["inspect_weights", WEIGHTS])
+    expect(rc == 0, f"[11] cli.inspect_weights returned {rc}")
+    convs = {m.group(1) for m in re.finditer(r"^(conv\d+)/", out, re.M)}
+    total = re.search(r"^# total parameters: ([\d,]+)$", out, re.M)
+    leaves = sum(np.asarray(v).size for p in params.values()
+                 for v in ([p["w"]] + ([p["b"]] if "b" in p else [])
+                           + list(p.get("bn", {}).values())))
+    expect(len(convs) == len(spec.conv_specs()),
+           f"[11] inspect_weights: {len(convs)} convs")
+    expect(total is not None
+           and int(total.group(1).replace(",", "")) == leaves,
+           f"[11] inspect_weights total {total and total.group(1)} vs "
+           f"{leaves}")
+    say(f"[11] cli.inspect_weights: {len(convs)} convs, '# total "
+        f"parameters: {total.group(1)}' = the leaves' sizes; "
+        f"{len(out.splitlines())} lines")
+
+
+# --------------------------------------------------------------------------
+# Phase 12: training on the card
+# --------------------------------------------------------------------------
+
+TRAIN_SEEDS = 200000                   # training scenes (the gate's are
+                                       # held out: 230100+)
+H100_BF16_FLOPS = 989e12               # dense bf16 peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
+
+
+def _train_scenes(torch, seeds, dev):
+    """Synthetic 80-class scenes through a q90 JPEG round trip, as the
+    committed checkpoints were trained: (images (B, 416, 416, 3) f32 in
+    [0, 1] on ``dev``, boxes, labels)."""
+    import numpy as np
+
+    from fastdet_tpu_torch.data import synth
+    from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
+
+    imgs, boxes, labels = synth.make_dataset(seeds, num_classes=80)
+    imgs = np.stack([jpeg_mod.decode_rgb(jpeg_mod.encode_rgb(im, 90))
+                     for im in imgs]).astype(np.float32) / 255.0
+    return torch.from_numpy(imgs).to(dev), boxes, labels
+
+
+def _conv_macs(spec) -> int:
+    """Multiply-accumulates of one image's forward, from the spec: per
+    conv, output cells x k x k x in x out."""
+    from fastdet_tpu_torch.models import yolov3
+
+    size, sizes, macs = spec.image_size, [], 0
+    io = iter(yolov3.conv_io_channels(spec))
+    for l in spec.layers:
+        if isinstance(l, yolov3.Conv):
+            cin, cout, k = next(io)
+            size //= l.stride
+            macs += size * size * k * k * cin * cout
+        elif isinstance(l, yolov3.MaxPool) and l.stride > 1:
+            size //= l.stride
+        elif isinstance(l, yolov3.Upsample):
+            size *= 2
+        elif isinstance(l, yolov3.Route):
+            size = sizes[l.sources[0]]
+        sizes.append(size)
+    return macs
+
+
+def _flipped(torch, train, x, slots, rng, grids):
+    """A random horizontal / vertical flip per image of NHWC ``x`` and
+    the matching slot transform (train.flip_slots)."""
+    dev = x.device
+    fh = torch.from_numpy(rng.rand(x.shape[0]) < 0.5).to(dev)
+    fv = torch.from_numpy(rng.rand(x.shape[0]) < 0.5).to(dev)
+    x = torch.where(fh[:, None, None, None], x.flip(2), x)
+    x = torch.where(fv[:, None, None, None], x.flip(1), x)
+    return x, train.flip_slots(slots, fh, fv, grids)
+
+
+def _state_diff(torch, a, b):
+    """Names of what differs between two TrainStates: the net's
+    parameters and buffers, the optimizer's state and groups, the step."""
+    sa, sb = a.net.state_dict(), b.net.state_dict()
+    out = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if oa["param_groups"] != ob["param_groups"]:
+        out.append("param_groups")
+    for i in sorted(set(oa["state"]) | set(ob["state"])):
+        ta, tb = oa["state"].get(i, {}), ob["state"].get(i, {})
+        for k in sorted(set(ta) | set(tb)):
+            va, vb = (torch.as_tensor(t[k]) if k in t else None
+                      for t in (ta, tb))
+            if (va is None or vb is None or va.device != vb.device
+                    or not torch.equal(va, vb)):
+                out.append(f"optimizer {i} {k}")
+    if a.step != b.step:
+        out.append("step")
+    return out
+
+
+def _step_grads(net):
+    """{name: .grad on the host} of every parameter."""
+    return {n: p.grad.detach().double().cpu().numpy()
+            for n, p in net.named_parameters()}
+
+
+def phase_train(torch, fixtures, npz_replies, gate, gate_ok, card):
+    """Training at full width (full:80, 416x416) on the card: (a) one f32
+    step from the checkpoint at batch 2, dense and sparse loss, against
+    the same step on the CPU and in float64 on the CPU (loss rtol 1e-4
+    against both; every gradient tensor of the card within L2-relative
+    1e-2 of the float64 step's, and within 1e-3 of the step's largest |g|
+    of the CPU's; BN running stats rtol 1e-4 with atol 1e-6 against the
+    CPU's);
+    (b) 20 bf16 sparse steps with flips from synthetic weights on a fixed
+    batch of 8: the mean loss of the last 5 under 0.9x that of the first
+    5; (c) step ms, images/s, peak memory and the share of the bf16 peak
+    at batch 16 in f32 and bf16; (d) save -> restore gives the saved
+    state bit for bit, and one more step equals the uninterrupted run
+    (states bit for bit, loss rtol 1e-5), and the export of a
+    zero-step state serves the fixtures with [5]'s records byte for
+    byte; (e) cli.train --synthetic with a checkpoint and --resume, then
+    30 bf16 fine-tune steps at lr 1e-5 and the gate of [10] on their
+    export, printed beside the untouched checkpoint's (not a check)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fastdet_tpu_torch.cli import train as train_cli
+    from fastdet_tpu_torch.models import weights, yolov3
+    from fastdet_tpu_torch.parallel import checkpoint, train
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    dev = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    spec, params = weights.load_model(WEIGHTS)
+    grids = yolov3.head_grid_sizes(spec)
+
+    # (a) card step against CPU step, f32, batch 2
+    x2, boxes2, labels2 = _train_scenes(torch, range(TRAIN_SEEDS,
+                                                     TRAIN_SEEDS + 2), cpu)
+    dense2 = [torch.from_numpy(t)
+              for t in train.build_targets(spec, boxes2, labels2)]
+    slots2 = torch.from_numpy(train.build_sparse_targets(spec, boxes2,
+                                                         labels2))
+    def worst(a, b):
+        """(max |a - b| over b's largest |g| of the step, and the worst
+        tensor relative to its own max |g|: (error, name))."""
+        gmax = max(np.abs(v).max() for v in b.values())
+        per = max((float(np.abs(a[n] - b[n]).max()
+                         / max(np.abs(b[n]).max(), 1e-30)), n) for n in b)
+        return max(float(np.abs(a[n] - b[n]).max()) for n in b) / gmax, per
+
+    def worst_l2(a, b):
+        """The worst tensor's L2-relative error ||a - b|| / ||b||:
+        (error, name)."""
+        return max((float(np.linalg.norm(a[n] - b[n])
+                          / max(np.linalg.norm(b[n]), 1e-30)), n) for n in b)
+
+    for kind, tg in (("dense", dense2), ("sparse", [slots2])):
+        res = []
+        # the card's f32 step, the CPU's, and the CPU's with the net in
+        # float64 (its heads and the loss stay float32, as TrainNet
+        # returns them): the reference that both f32 steps are held against
+        for d, dt in ((dev, torch.float32), (cpu, torch.float32),
+                      (cpu, torch.float64)):
+            t0 = time.perf_counter()
+            st = train.init_train_state(spec, params, device=d)
+            st.net.to(dt)
+            st, m = train.make_train_step(spec, sparse=kind == "sparse")(
+                st, x2.to(d, dt), *[t.to(d, dt) for t in tg])
+            res.append((float(m["loss"]), _step_grads(st.net),
+                        {n: b.double().cpu().numpy()
+                         for n, b in st.net.named_buffers()},
+                        time.perf_counter() - t0))
+            del st
+        (lc, gc, bc, sc), (lh, gh, bh, sh), (l64, g64, _, s64) = res
+        gerr, per = worst(gc, gh)
+        berr = max(float((np.abs(bc[n] - bh[n])
+                          / (1e-6 + 1e-4 * np.abs(bh[n]))).max())
+                   for n in bh)
+        say(f"[12a] {kind} f32 step, batch 2: loss card {lc!r} CPU {lh!r} "
+            f"(rel {abs(lc - lh) / abs(lh):.3e}); over {len(gh)} gradient "
+            f"tensors max |card - CPU| = {gerr:.3e} of the step's largest "
+            f"|g| (worst tensor {per[1]}: {per[0]:.3e} of its own max); BN "
+            f"stats err / (1e-6 + 1e-4 |x|) {berr:.3f}; step walls card "
+            f"{sc:.2f} s, CPU {sh:.2f} s, CPU float64 {s64:.2f} s")
+        l2 = {}
+        for who, g in (("card", gc), ("CPU", gh)):
+            e, p = worst(g, g64)
+            l2[who] = worst_l2(g, g64)
+            say(f"[12a] {kind} f32 {who} vs the float64 CPU step (loss "
+                f"{l64!r}): worst tensor L2-relative {l2[who][1]}: "
+                f"{l2[who][0]:.3e}; {e:.3e} of the largest |g|; worst "
+                f"tensor {p[1]}: {p[0]:.3e} of its own max")
+        expect(abs(lc - lh) <= 1e-4 * abs(lh), f"[12a] {kind} loss")
+        expect(abs(lc - l64) <= 1e-4 * abs(l64),
+               f"[12a] {kind} loss vs float64")
+        expect(l2["card"][0] <= 1e-2,
+               f"[12a] {kind} card gradients vs float64: {l2['card']}")
+        expect(gerr <= 1e-3, f"[12a] {kind} gradients card vs CPU: {gerr}")
+        expect(berr <= 1.0, f"[12a] {kind} BN running stats: {berr}")
+
+    # (b) the loss falls: 20 bf16 sparse steps with flips
+    x8, boxes8, labels8 = _train_scenes(
+        torch, range(TRAIN_SEEDS + 2, TRAIN_SEEDS + 10), dev)
+    slots8 = torch.from_numpy(train.build_sparse_targets(
+        spec, boxes8, labels8)).to(dev)
+    st = train.init_train_state(spec, weights.synthetic_params(spec, 0),
+                                device=dev)
+    step = train.make_train_step(spec, compute_dtype=torch.bfloat16,
+                                 sparse=True)
+    rng = np.random.RandomState(0)
+    losses = []
+    for _ in range(20):
+        st, m = step(st, *_flipped(torch, train, x8, slots8, rng, grids))
+        losses.append(float(m["loss"]))
+    del st
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    say(f"[12b] bf16 sparse steps from synthetic_params(seed=0), batch 8 "
+        f"with flips: losses {[round(v, 3) for v in losses]}")
+    say(f"[12b] mean of the last 5 {last:.4f} vs the first 5 {first:.4f} "
+        f"({last / first:.4f}, bar 0.9)")
+    expect(all(np.isfinite(losses)) and last < 0.9 * first,
+           "[12b] the loss did not fall")
+
+    # (c) step time, images/s, memory and share of peak at batch 16
+    x16 = torch.cat([x8, x8.flip(2)])
+    slots16 = torch.cat([slots8, train.flip_slots(
+        slots8, torch.ones(8, dtype=torch.bool, device=dev),
+        torch.zeros(8, dtype=torch.bool, device=dev), grids)])
+    flops = 3 * 2 * _conv_macs(spec) * x16.shape[0]
+    for name, cd in (("f32", None), ("bf16", torch.bfloat16)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = train.init_train_state(spec, params, device=dev)
+        step = train.make_train_step(spec, compute_dtype=cd, sparse=True)
+        for _ in range(3):
+            st, m = step(st, x16, slots16)
+        torch.cuda.synchronize()
+        n = 10
+        t0 = time.perf_counter()
+        for _ in range(n):
+            st, m = step(st, x16, slots16)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        mem = torch.cuda.max_memory_allocated()
+        _where_time_goes(torch, lambda: step(st, x16, slots16),
+                         tag=f"[12c] {name}")
+        del st, m
+        rate = flops / (ms / 1e3)
+        say(f"[12c] {name} train step, batch 16 (sparse loss, AdamW, BN "
+            f"EMA): {ms:.3f} ms, {16 / (ms / 1e3):.1f} images/s; peak "
+            f"memory {mem / 2**30:.3f} GiB; {flops / 1e12:.4f} TFLOP a "
+            f"step (3 x 2 x conv MACs), {rate / 1e12:.2f} TFLOP/s = "
+            f"{100 * rate / H100_BF16_FLOPS:.2f} % of the dense bf16 peak "
+            f"989 TFLOP/s"
+            + (f" ({100 * rate / H100_F32_FLOPS:.1f} % of the 67 TFLOP/s "
+               f"float32 peak)" if cd is None else "")
+            + f"; {card}")
+
+    tmp = tempfile.mkdtemp(prefix="fastdet-train-")
+    try:
+        # (d) checkpoint round trip and the export's service
+        xd, td = x2.to(dev), [t.to(dev) for t in dense2]
+        step = train.make_train_step(spec)
+        a, _ = step(train.init_train_state(spec, params, device=dev), xd, *td)
+        path = os.path.join(tmp, "state.pt")
+        t0 = time.perf_counter()
+        checkpoint.save(path, a)
+        save_s = time.perf_counter() - t0
+        b = checkpoint.restore(path, train.init_train_state(
+            spec, weights.synthetic_params(spec, 1), device=dev))
+        restored = _state_diff(torch, a, b)
+        xb = xd.flip(2)
+        # the same cuDNN algorithms for both runs, so the states can be
+        # held equal bit for bit after the step
+        torch.backends.cudnn.deterministic = True
+        try:
+            _, ma = step(a, xb, *td)
+            _, mb = step(b, xb, *td)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        resumed = _state_diff(torch, a, b)
+        la, lb = float(ma["loss"]), float(mb["loss"])
+        say(f"[12d] save ({os.path.getsize(path)} B, {save_s:.2f} s) -> "
+            f"restore: parameters, BN running stats, Adam moments and step "
+            f"equal (differing: {restored}) -> step: loss {lb!r} vs "
+            f"uninterrupted {la!r}; the states after it differ in "
+            f"{resumed}")
+        expect(not restored, f"[12d] the restored state differs: {restored}")
+        expect(not resumed and abs(la - lb) <= 1e-5 * abs(la),
+               "[12d] the resumed step differs from the uninterrupted one")
+        del a, b
+        export = os.path.join(tmp, "export.npz")
+        checkpoint.export_inference(export, spec, train.init_train_state(
+            spec, params, device=dev))
+        services = build_services([f"full:80:{export}"], buckets=(8,))
+        try:
+            with _serving(services) as port:
+                replies, _ = _ask(port, "full", fixtures)
+        finally:
+            services["full"].engine.close()
+        for n, recs in replies.items():
+            expect(recs == npz_replies[n],
+                   f"[12d] {n}: the export's records differ from [5]'s")
+        say(f"[12d] export_inference of a zero-step state: its service "
+            f"answers the {len(replies)} fixtures with [5]'s records byte "
+            f"for byte ({sum(len(r) for r in replies.values())} records)")
+
+        # (e) cli.train with a checkpoint and --resume, then fine-tune
+        ck, out = os.path.join(tmp, "cli.pt"), os.path.join(tmp, "cli.npz")
+        argv = ["train", "--synthetic", "--batch", "4", "-w", WEIGHTS,
+                "--ckpt", ck, "--ckpt-every", "2", "-o", out]
+        t0 = time.perf_counter()
+        expect(train_cli.main(argv + ["--steps", "4"]) == 0,
+               "[12e] cli.train failed")
+        t1 = time.perf_counter()
+        expect(train_cli.main(argv + ["--steps", "6", "--resume"]) == 0,
+               "[12e] cli.train --resume failed")
+        t2 = time.perf_counter()
+        expect(torch.load(ck, weights_only=True)["step"] == 6
+               and os.path.exists(out), "[12e] cli.train --resume")
+        say(f"[12e] cli.train --synthetic 4 steps at batch 4 from the "
+            f"checkpoint: {t1 - t0:.2f} s; --resume to 6: {t2 - t1:.2f} s; "
+            f"checkpoint at step 6, {os.path.getsize(out)} B exported")
+
+        st = train.init_train_state(spec, params, lr=1e-5, device=dev)
+        step = train.make_train_step(spec, compute_dtype=torch.bfloat16,
+                                     sparse=True)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(30):
+            seeds = range(TRAIN_SEEDS + 100 + 8 * i, TRAIN_SEEDS + 108 + 8 * i)
+            xi, bi, li = _train_scenes(torch, seeds, dev)
+            si_ = torch.from_numpy(train.build_sparse_targets(
+                spec, bi, li)).to(dev)
+            st, m = step(st, *_flipped(torch, train, xi, si_, rng, grids))
+            losses.append(float(m["loss"]))
+        tuned = os.path.join(tmp, "tuned.npz")
+        checkpoint.export_inference(tuned, spec, st)
+        del st
+        say(f"[12e] 30 bf16 fine-tune steps at lr 1e-5, batch 8 (seeds "
+            f"{TRAIN_SEEDS + 100}-{TRAIN_SEEDS + 339}, flips): "
+            f"{time.perf_counter() - t0:.1f} s; losses "
+            f"{[round(v, 3) for v in losses]}")
+        r = _gate_run(torch, tuned, "bf16", gate, tag="[12e]")
+        say(f"[12e] gate after fine-tuning (printed, not a check): "
+            f"{sum(r['ok'])}/{len(r['ok'])} frames ok, against the "
+            f"untouched checkpoint's {gate_ok['bf16']}/{len(r['ok'])} in "
+            f"[10]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def kernels_line(b1, b2, launches, d):
@@ -1329,6 +1949,10 @@ def main(argv) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     ).parse_args(argv[1:])
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    # warnings only: the CLIs driven in [11] and [12] configure INFO
+    # logging when nothing has configured it before them
+    logging.basicConfig(format="%(asctime)s %(levelname)s %(message)s",
+                        level=logging.WARNING)
 
     if not os.path.isdir(os.path.join(REPO, "fastdet_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -1363,7 +1987,9 @@ def main(argv) -> int:
         phase_int8(torch, fixtures, services, engine_records)
         phase_coeffs(torch, fixtures, services)
         phase_checkpoints(torch, fixtures, replies)
-        phase_gate(torch)
+        gate, gate_ok = phase_gate(torch)
+        phase_client(torch, fixtures, services)
+        phase_train(torch, fixtures, replies, gate, gate_ok, card)
     finally:
         for svc in services.values():
             svc.engine.close()

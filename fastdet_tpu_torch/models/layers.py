@@ -14,11 +14,17 @@ cuDNN prefers); the model's public functions stay NHWC
   fold).
 - :func:`space_to_depth` keeps the JAX package's phase-major channel
   order on NCHW tensors in channels-last memory.
+- Training (:func:`conv2d_train`, :func:`batch_norm_train_stats`,
+  :func:`conv_bn_block_train`) keeps the JAX package's conventions: the
+  conv runs in the compute dtype, batch norm normalises with the batch
+  mean and the *biased* variance computed in float32, and LeakyReLU is
+  ``where(x >= 0, ...)``, whose gradient at exactly 0 is 1 (that of
+  ``F.leaky_relu`` is 0.1 there).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -43,6 +49,55 @@ def conv_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         (t, bo), (le, r) = pad
         y = F.conv2d(F.pad(x, (le, r, t, bo)), w, b, stride=stride)
     return F.leaky_relu(y, LEAKY_SLOPE) if act else y
+
+
+def conv2d_train(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                 pad=None) -> torch.Tensor:
+    """Training-path convolution, NCHW / OIHW: operands and output in
+    ``x``'s dtype (the compute dtype; cuDNN accumulates bf16 products in
+    float32 either way), as the JAX package's ``conv2d_train``. ``pad``
+    as in :func:`conv_block`."""
+    w = w.to(x.dtype)
+    if pad is None:
+        return F.conv2d(x, w, stride=stride, padding=(w.shape[-1] - 1) // 2)
+    (t, bo), (le, r) = pad
+    return F.conv2d(F.pad(x, (le, r, t, bo)), w, stride=stride)
+
+
+def batch_norm_train_stats(x: torch.Tensor, gamma: torch.Tensor,
+                           beta: torch.Tensor):
+    """Training BN over (N, H, W) of an NCHW tensor; returns (y, batch
+    mean, batch var) so the train step can EMA the running statistics.
+
+    The statistics are float32 (float64 for a float64 ``x``, so the step
+    can run in float64 as a reference) and the variance is the biased one
+    (the JAX package's ``jnp.var``); ``y`` is ``(x - mean) * rsqrt(var +
+    eps) * gamma + beta`` at that precision, cast back to ``x``'s dtype.
+    No ``nn.BatchNorm2d``: its running-stat update uses the unbiased
+    variance and another momentum convention."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+    inv = torch.rsqrt(var + BN_EPS)
+    y = ((x32 - mean[:, None, None]) * inv[:, None, None]
+         * gamma[:, None, None] + beta[:, None, None])
+    return y.to(x.dtype), mean, var
+
+
+def conv_bn_block_train(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                        act: bool = True, pad=None, *, bn=None,
+                        b: Optional[torch.Tensor] = None):
+    """Training conv block: conv + batch-stat BN (``bn`` = (gamma, beta))
+    or + bias ``b`` in the compute dtype, then LeakyReLU when ``act``.
+    Returns (y, stats): stats = (batch mean, batch var) with ``bn``, else
+    None."""
+    y = conv2d_train(x, w, stride, pad)
+    stats = None
+    if bn is not None:
+        y, mean, var = batch_norm_train_stats(y, *bn)
+        stats = (mean, var)
+    else:
+        y = y + b.to(y.dtype)[:, None, None]
+    return (leaky_relu(y) if act else y), stats
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:

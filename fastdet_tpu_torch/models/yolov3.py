@@ -6,6 +6,8 @@ names conv0..convN). :class:`YoloNet` walks a spec as an ``nn.Module``;
 its public interface is NHWC like the JAX interpreter (input (B, H, W, 3)
 in [0, 1], heads (B, h, w, 3*(5+C)) float32), while inside it runs NCHW
 tensors in channels-last memory, the layout cuDNN prefers.
+:class:`TrainNet` is the trainable interpreter, the counterpart of the
+JAX ``apply(train=True)``.
 
 Models:
 
@@ -261,6 +263,36 @@ def conv_io_channels(spec: ModelSpec) -> List[Tuple[int, int, int]]:
     return out
 
 
+def _walk(spec: ModelSpec, x: torch.Tensor,
+          conv: Callable[[Conv, torch.Tensor], torch.Tensor]
+          ) -> List[torch.Tensor]:
+    """Run ``spec``'s layers over (B, H, W, 3) ``x`` in NCHW channels-last
+    memory, calling ``conv(layer, input)`` for each Conv; -> per-scale
+    NHWC float32 heads. YoloNet and TrainNet differ only in ``conv``."""
+    cur = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    outputs: List[torch.Tensor] = []
+    heads: List[torch.Tensor] = []
+    for l in spec.layers:
+        if isinstance(l, Conv):
+            cur = conv(l, cur)
+        elif isinstance(l, SpaceToDepth):
+            cur = layers.space_to_depth(cur, l.factor, l.pad_channels)
+        elif isinstance(l, MaxPool):
+            cur = layers.maxpool2d(cur, l.size, l.stride)
+        elif isinstance(l, Upsample):
+            cur = layers.upsample2x(cur)
+        elif isinstance(l, Route):
+            srcs = [outputs[i] for i in l.sources]
+            cur = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+        elif isinstance(l, Shortcut):
+            cur = cur + outputs[l.source]
+        elif isinstance(l, YoloHead):
+            heads.append(cur.permute(0, 2, 3, 1).float().contiguous())
+        outputs.append(cur)
+    assert len(heads) == spec.num_outputs
+    return heads
+
+
 class YoloNet(nn.Module):
     """Inference interpreter of a spec over FOLDED parameters.
 
@@ -301,34 +333,114 @@ class YoloNet(nn.Module):
 
         ``on_conv(layer, x, y)``, when given, sees each conv's input and
         output (int8 calibration reads their absolute maxima)."""
-        cur = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
-        outputs: List[torch.Tensor] = []
-        heads: List[torch.Tensor] = []
-        for l in self.spec.layers:
-            if isinstance(l, Conv):
-                y = layers.conv_block(cur, self.weights[l.name],
-                                      self.biases[l.name], l.stride,
-                                      l.act, l.pad)
-                if on_conv is not None:
-                    on_conv(l, cur, y)
-                cur = y
-            elif isinstance(l, SpaceToDepth):
-                cur = layers.space_to_depth(cur, l.factor, l.pad_channels)
-            elif isinstance(l, MaxPool):
-                cur = layers.maxpool2d(cur, l.size, l.stride)
-            elif isinstance(l, Upsample):
-                cur = layers.upsample2x(cur)
-            elif isinstance(l, Route):
-                srcs = [outputs[i] for i in l.sources]
-                cur = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
-            elif isinstance(l, Shortcut):
-                cur = cur + outputs[l.source]
-            elif isinstance(l, YoloHead):
-                heads.append(cur.permute(0, 2, 3, 1).float().contiguous())
-            outputs.append(cur)
-        assert len(heads) == self.spec.num_outputs
-        return heads
+        def conv(l: Conv, cur: torch.Tensor) -> torch.Tensor:
+            y = layers.conv_block(cur, self.weights[l.name],
+                                  self.biases[l.name], l.stride, l.act,
+                                  l.pad)
+            if on_conv is not None:
+                on_conv(l, cur, y)
+            return y
+
+        return _walk(self.spec, x.to(self.dtype), conv)
+
+
+class _TrainConv(nn.Module):
+    """One conv's trainable state: the float32 master weight ``w`` (OIHW)
+    and either BN ``gamma`` / ``beta`` with the running ``mean`` / ``var``
+    as buffers, or the head conv's bias ``b``."""
+
+    def __init__(self, p: Dict[str, Any], device: torch.device):
+        super().__init__()
+
+        def t(a):
+            return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+        w = t(np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1))
+        self.w = nn.Parameter(w.contiguous(memory_format=torch.channels_last))
+        if "bn" in p:
+            bn = p["bn"]
+            self.gamma = nn.Parameter(t(bn["gamma"]))
+            self.beta = nn.Parameter(t(bn["beta"]))
+            self.register_buffer("mean", t(bn["mean"]))
+            self.register_buffer("var", t(bn["var"]))
+        else:
+            self.b = nn.Parameter(t(p["b"]))
+
+    @property
+    def has_bn(self) -> bool:
+        return hasattr(self, "gamma")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).clone().numpy()
+
+
+class TrainNet(nn.Module):
+    """Trainable interpreter of a spec over UNFOLDED parameters: the
+    counterpart of the JAX package's ``apply(train=True)``
+    (fastdet_tpu/models/yolov3.py:288).
+
+    Parameters are float32 masters (conv ``w``, BN ``gamma`` / ``beta``,
+    head ``b``); BN's running ``mean`` / ``var`` are buffers, which only
+    the train step's EMA changes (parallel/train.py). The forward casts
+    the input and each weight to ``compute_dtype`` itself, as the JAX
+    code does (no ``torch.autocast``, whose policy would run BN and other
+    ops in other dtypes), normalises with batch statistics, and returns
+    NHWC float32 heads. Build it with :meth:`from_params`; read it back
+    with :meth:`to_params`."""
+
+    def __init__(self, spec: ModelSpec, convs: Dict[str, _TrainConv]):
+        super().__init__()
+        self.spec = spec
+        self.convs = nn.ModuleDict(convs)
+
+    @classmethod
+    def from_params(cls, spec: ModelSpec, params: Dict[str, Any], *,
+                    device="cuda") -> "TrainNet":
+        """From the unfolded numpy tree {conv: {"w" HWIO, "bn": {gamma,
+        beta, mean, var}} or {"w", "b"}} that weights.load_model and the
+        JAX package both use, on ``device`` (the card by default; true
+        float32 there: :func:`fastdet_tpu_torch.device.strict_fp32`)."""
+        device = device_mod.resolve(device)
+        if device.type == "cuda":
+            device_mod.strict_fp32()
+        return cls(spec, {l.name: _TrainConv(params[l.name], device)
+                          for l in spec.conv_specs()})
+
+    def to_params(self) -> Dict[str, Any]:
+        """The unfolded numpy tree (HWIO ``w``), float32 host copies."""
+        out: Dict[str, Any] = {}
+        for name, c in self.convs.items():
+            w = np.ascontiguousarray(_host(c.w).transpose(2, 3, 1, 0))
+            if c.has_bn:
+                out[name] = {"w": w, "bn": {
+                    k: _host(getattr(c, k))
+                    for k in ("gamma", "beta", "mean", "var")}}
+            else:
+                out[name] = {"w": w, "b": _host(c.b)}
+        return out
+
+    def forward(self, x: torch.Tensor, compute_dtype=None,
+                with_stats: bool = False):
+        """(B, H, W, 3) float in [0, 1] -> per-scale NHWC float32 heads,
+        and with ``with_stats`` also {conv: (batch mean, batch var)} of
+        every BN layer (float32, still on the autograd graph)."""
+        stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+        def conv(l: Conv, cur: torch.Tensor) -> torch.Tensor:
+            c = self.convs[l.name]
+            y, st = layers.conv_bn_block_train(
+                cur, c.w, l.stride, l.act, l.pad,
+                bn=(c.gamma, c.beta) if c.has_bn else None,
+                b=None if c.has_bn else c.b)
+            if st is not None:
+                stats[l.name] = st
+            return y
+
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        heads = _walk(self.spec, x, conv)
+        return (heads, stats) if with_stats else heads
 
 
 def head_grid_sizes(spec: ModelSpec) -> List[int]:

@@ -58,7 +58,11 @@ def test_every_module_imports_with_jax_blocked():
             importlib.import_module(m)
         for m in ("ops.ingest_stages", "models.quantize", "models.s2d",
                   "tools.debug_ingest", "parallel.checkpoint",
-                  "models.onnx_io", "data.synth", "ops.metrics"):
+                  "models.onnx_io", "data.synth", "ops.metrics",
+                  "client_api", "utils.labels", "utils.draw",
+                  "parallel.train", "cli.detector", "cli.client",
+                  "cli.demo", "cli.httpserver", "cli.inspect_weights",
+                  "cli.train"):
             assert "fastdet_tpu_torch." + m in mods, m
         import chip_smoke
         try:
