@@ -82,6 +82,25 @@ Drives the port's main path end to end and checks every kernel on it:
      fixtures with [5]'s records byte for byte; (e) cli.train with a
      checkpoint and --resume, then 30 bf16 fine-tune steps and the gate
      of [10] on their export, printed and not checked;
+ 13. multi-device serving, lazy warm-up, the data-parallel step and the
+     device trace: (a) the cold start of two fresh processes
+     (build_services(full:80, bf16, buckets (1, 8)) then warmup(), eager
+     with FASTDET_LAZY_WARM=0 and lazy): warmup's return,
+     background_warm_s, the five largest warm_attribution entries; in
+     this process a lazy engine with the dense tier and planes pending
+     routes the seven fixtures down the ladder (no dense tier, those
+     frames on the pixel route), each frame's records equal to the warm
+     engine's on its route, and over loopback; nothing pending after
+     wait_warm; (b) a dp engine over every visible card (two shards on
+     cuda:0 when one is visible), bf16, buckets (1, 8): buckets rounded
+     as the JAX engine's, B1 and B2 launched by each shard on its own
+     device, both batch walls printed; an f32 dp engine's records equal
+     to an f32 one-device engine's at bucket 8;
+     (c) the DDP step on an NCCL group of every visible card: at world
+     size 1, batch 8, sparse loss, bf16 and f32, the state after one step
+     equal to make_train_step's bit for bit; cli.train over every card,
+     its export served; (d) utils/profiling.device_trace of one sparse
+     batch names B1's kernel;
 
 then prints the card line, the kernels line and, last, the result line.
 It exits nonzero with no result line when no CUDA card is present, when
@@ -678,14 +697,14 @@ def _sparse_input_check(torch, eng, jpegs):
     seen = []
     pipe, tail = eng._pipeline_sparse, eng._postprocess_tail
 
-    def capture_pipe(packed, layout=(2, 2), tier="std"):
+    def capture_pipe(packed, layout=(2, 2), tier="std", shard=0):
         seen.append({"args": (packed.clone(), layout, tier)})
-        return pipe(packed, layout, tier)
+        return pipe(packed, layout, tier, shard)
 
-    def capture_tail(x, thresholds):
+    def capture_tail(x, thresholds, shard=0):
         if seen and "x" not in seen[-1]:
             seen[-1]["x"] = x.clone()
-        return tail(x, thresholds)
+        return tail(x, thresholds, shard)
 
     def plain(offs, ms, vals, esc8, esc16, sentinel, dc=None):
         return si._with_dc(
@@ -698,7 +717,7 @@ def _sparse_input_check(torch, eng, jpegs):
     finally:
         del eng._pipeline_sparse, eng._postprocess_tail
     kernel, si.reconstruct = si.reconstruct, plain
-    eng._postprocess_tail = lambda x, thr: x
+    eng._postprocess_tail = lambda x, thr, shard=0: x
     try:
         diff = 0.0
         for d in seen:
@@ -988,8 +1007,8 @@ def phase_int8(torch, fixtures, bf16_services, bf16_records):
                                device="cpu")
         try:
             expect(cpu8.spec == eng.spec, "the CPU engine's graph differs")
-            cpu8.net = quantize.Int8Net(cpu8.spec, eng.qparams,
-                                        device="cpu").eval()
+            cpu8.nets[0] = quantize.Int8Net(cpu8.spec, eng.qparams,
+                                            device="cpu").eval()
             n = scenes[0]
             got = []
             for e in (eng, cpu8):
@@ -1904,6 +1923,396 @@ def phase_train(torch, fixtures, npz_replies, gate, gate_ok, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# Phase 13: multi-device serving, lazy warm-up, the DDP step, device_trace
+# --------------------------------------------------------------------------
+
+WARM_BUCKETS = (1, 8)
+
+
+def _warm_child(lazy: str) -> None:
+    """[13a] in a fresh process (``python3 -c``): build_services(full:80,
+    bf16, buckets (1, 8)) without its warm-up, then warmup() timed; the
+    first batch of the seven fixtures right after warmup returns; then
+    wait_warm(). Prints one JSON line."""
+    os.environ["FASTDET_LAZY_WARM"] = lazy
+    sys.path.insert(0, REPO)
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    t0 = time.perf_counter()
+    services = build_services([f"full:80:{WEIGHTS}"], buckets=WARM_BUCKETS,
+                              warmup=False)
+    eng = services["full"].engine
+    t1 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t1
+    pending = len(eng._lazy_pending)
+    jpegs = list(_fixture_bytes().values())
+    t2 = time.perf_counter()
+    res = eng.detect_async_sparse(jpegs, [THR] * len(jpegs))
+    eng.fetch_wire(res, len(jpegs))
+    first_ms = (time.perf_counter() - t2) * 1e3
+    eng.wait_warm()
+    out = {"build_s": t1 - t0, "warmup_s": warm_s,
+           "background_warm_s": eng.background_warm_s,
+           "pending_at_return": pending,
+           "pending_after_wait": sorted(map(str, eng._lazy_pending)),
+           "first_batch_ms": first_ms, "first_batch_counts": res.counts,
+           "first_batch_unresolved": list(res.unresolved),
+           "attribution": eng.warm_attribution}
+    eng.close()
+    print(json.dumps(out), flush=True)
+
+
+def _cold_start(lazy: str):
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+         f"chip_smoke._warm_child({lazy!r})"],
+        capture_output=True, text=True, timeout=240, cwd=REPO)
+    expect(proc.returncode == 0,
+           f"[13a] warm-up child (lazy={lazy}) failed: "
+           f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_lazy_warm(torch, fixtures, services_warm, engine_records):
+    """[13a] lazy warm-up: (1) the cold start of two fresh processes,
+    eager (FASTDET_LAZY_WARM=0) and lazy: warmup's return, the
+    background warm, the five largest warm_attribution entries, the
+    first batch after warmup returns (printed, not checked); (2) in this
+    process a lazy service with the dense-tier and plane programs put in
+    _lazy_pending (as the CPU tests do) answers the seven fixtures with
+    the warm engine's records on each frame's route at [4]'s tolerance
+    (one batch, as [4]: no frame on the dense tier or planes, those
+    frames on the pixel route) and over loopback (the service's ingest
+    shows the same ladder); after wait_warm nothing is pending and every
+    program has its attribution."""
+    from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
+    from fastdet_tpu_torch.runtime import native_jpeg
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    runs = {lazy: _cold_start(lazy) for lazy in ("0", "1")}
+    for lazy, name in (("0", "eager"), ("1", "lazy")):
+        r = runs[lazy]
+        top = sorted(r["attribution"].items(), key=lambda kv: -kv[1])[:5]
+        say(f"[13a] {name} cold start (fresh process, bf16, buckets "
+            f"{WARM_BUCKETS}): build_services without warm-up "
+            f"{r['build_s']:.3f} s; warmup returned after "
+            f"{r['warmup_s']:.3f} s with {r['pending_at_return']} programs "
+            f"left to the background; background_warm_s "
+            f"{r['background_warm_s']}; first batch of the fixtures "
+            f"{r['first_batch_ms']:.1f} ms, tiers {r['first_batch_counts']},"
+            f" unresolved {r['first_batch_unresolved']}")
+        say(f"[13a] {name} largest warm_attribution entries (s): "
+            + "; ".join(f"{k} {v:.3f}" for k, v in top))
+        expect(not r["pending_after_wait"],
+               f"[13a] {name}: still pending after wait_warm: "
+               f"{r['pending_after_wait']}")
+    expect(runs["0"]["background_warm_s"] is None
+           and runs["0"]["pending_at_return"] == 0,
+           "[13a] FASTDET_LAZY_WARM=0 left work to the background")
+    expect(runs["1"]["pending_at_return"] > 0
+           and runs["1"]["background_warm_s"] is not None,
+           "[13a] the lazy warm-up put nothing on the background thread")
+    expect(set(runs["0"]["attribution"]) == set(runs["1"]["attribution"]),
+           "[13a] eager and lazy warmed different programs")
+
+    old = os.environ.get("FASTDET_LAZY_WARM")
+    os.environ["FASTDET_LAZY_WARM"] = "1"
+    try:
+        services = build_services([f"full:80:{WEIGHTS}"],
+                                  buckets=WARM_BUCKETS, warmup=False)
+        eng = services["full"].engine
+        eng.warmup()
+    finally:
+        if old is None:
+            del os.environ["FASTDET_LAZY_WARM"]
+        else:
+            os.environ["FASTDET_LAZY_WARM"] = old
+    try:
+        eng.wait_warm(240)
+        expect(not eng._lazy_pending,
+               f"[13a] pending after wait_warm: {eng._lazy_pending}")
+        expect(len(eng.warm_attribution) == len(runs["0"]["attribution"]),
+               f"[13a] {len(eng.warm_attribution)} programs warmed, "
+               f"{len(runs['0']['attribution'])} eager")
+        pending = (
+            {("sparse", lay, "dense", b) for lay in native_jpeg.PLANE_LAYOUTS
+             for b in eng.buckets}
+            | {("planes", lay, b) for lay in native_jpeg.PLANE_LAYOUTS
+               for b in eng.buckets})
+        # one batch of the seven, its unresolved frames down the pixel
+        # route as the server sends them; each frame held against the
+        # warm engine's records on the same route
+        names = list(fixtures)
+        jpegs = [fixtures[n] for n in names]
+        eng._lazy_pending = set(pending)
+        res = eng.detect_async_sparse(jpegs, [THR] * len(jpegs))
+        wire = eng.fetch_wire(res, len(jpegs))
+        warm = services_warm["full"].engine
+        cross = []
+        for i in res.unresolved:
+            img = jpeg_mod.decode_rgb(jpegs[i])
+            wire[i] = eng.fetch_wire(eng.detect_async([img], [THR]), 1)[0]
+            want = warm.fetch_wire(warm.detect_async([img], [THR]), 1)[0]
+            _same_records(_records(wire[i]), _records(want),
+                          f"[13a] {names[i]} on the pixel route vs the "
+                          f"warm engine's pixel route")
+            cross.append(_agreement(_records(wire[i]),
+                                    engine_records[names[i]]))
+        for i, n in enumerate(names):
+            if i not in res.unresolved:
+                _same_records(_records(wire[i]), engine_records[n],
+                              f"[13a] {n} vs [4]")
+        say(f"[13a] dense tier and planes pending: one batch of the seven "
+            f"fixtures: tiers {res.counts}, to the pixel route "
+            f"{[names[i] for i in res.unresolved]}; every frame's records "
+            f"equal the warm engine's on its route; against [4]'s records "
+            f"on the tiers they rode there (printed): "
+            f"{sum(h for h, _ in cross)}/{sum(t for _, t in cross)} boxes "
+            f"matched (same class, IoU >= 0.5)")
+        expect(set(res.counts) == {"sparse"} and len(res.unresolved)
+               == len(jpegs) - res.counts["sparse"],
+               f"[13a] the ladder was not taken: {res.counts}")
+        eng._tier_hint.clear()
+        with _serving(services) as port:
+            replies, dt = _ask(port, "full", fixtures)
+        eng._lazy_pending = set()
+        svc = services["full"]
+        say(f"[13a] over loopback with the fallbacks pending: "
+            f"{len(replies)} fixtures answered in {dt * 1e3:.1f} ms; ingest "
+            f"{svc.ingest}")
+        expect(len(replies) == len(fixtures)
+               and not svc.ingest.get("sparse_dense")
+               and not svc.ingest.get("planes")
+               and svc.ingest.get("pixels", 0) > 0
+               and sum(svc.ingest.values()) == len(fixtures),
+               f"[13a] the served ladder was not taken: {svc.ingest}")
+    finally:
+        eng.close()
+
+
+def phase_sharded(torch, fixtures, services):
+    """[13b] the dp engine over every visible card (two shards on cuda:0
+    on a one-card machine), bf16, buckets (1, 8): buckets rounded as the
+    JAX engine rounds them; each shard launches B1 and B2 on its own
+    device from its own worker (counted per shard); the batch walls of
+    it and of [4]'s one-device engine (on one card not a speedup figure)
+    and the boxes they agree on, printed. The records check runs in f32,
+    a dp engine against a one-device engine at bucket 8: count and
+    class, IoU >= 0.999, confidence within one wire level. (In bf16 a
+    shard's batch of 4 rows and a batch of 8 run other cuDNN algorithms,
+    and bf16 rounding then moves boxes by more than that: printed.)"""
+    from fastdet_tpu_torch.models import weights
+    from fastdet_tpu_torch.ops import plane_ingest
+    from fastdet_tpu_torch.ops import sparse_ingest as si
+    from fastdet_tpu_torch.parallel import mesh
+    from fastdet_tpu_torch.runtime.engine import DetectionEngine
+
+    n_cards = torch.cuda.device_count()
+    devs = (None if n_cards > 1
+            else [torch.device("cuda", 0), torch.device("cuda", 0)])
+    spec, params = weights.load_model(WEIGHTS)
+    engines = {
+        "dp": DetectionEngine(spec, params, buckets=(1, 8), devices=devs),
+        "dp32": DetectionEngine(spec, params, mode="f32", buckets=(8,),
+                                devices=devs),
+        "one32": DetectionEngine(spec, params, mode="f32", buckets=(8,),
+                                 devices=[torch.device("cuda", 0)])}
+    eng, one = engines["dp"], services["full"].engine
+    names = list(fixtures)
+    jpegs = [fixtures[n] for n in names]
+
+    def batch(e):
+        e._tier_hint.clear()
+        out = e.fetch_wire(e.detect_async_sparse(
+            jpegs, [THR] * len(jpegs)), len(jpegs))
+        e._tier_hint.clear()
+        return out
+
+    try:
+        n = eng.n_devices
+        expect(eng.buckets == mesh.dp_buckets((1, 8), n),
+               f"[13b] buckets {eng.buckets} over {n} shards")
+        seen = []
+        kernels = (si.reconstruct, plane_ingest.plane_ingest_batch)
+
+        def spy(name, fn):
+            def run(*a, **kw):
+                seen.append((name, threading.current_thread().name,
+                             {t.device for t in a
+                              if isinstance(t, torch.Tensor)}))
+                return fn(*a, **kw)
+            return run
+
+        si.reconstruct = spy("B1", kernels[0])
+        plane_ingest.plane_ingest_batch = spy("B2", kernels[1])
+        si.LAUNCHES = plane_ingest.LAUNCHES = 0
+        try:
+            eng._tier_hint.clear()
+            res = eng.detect_async_sparse(jpegs, [THR] * len(jpegs))
+            wire = eng.fetch_wire(res, len(jpegs))
+            launches = {"B1": si.LAUNCHES, "B2": plane_ingest.LAUNCHES}
+        finally:
+            si.reconstruct, plane_ingest.plane_ingest_batch = kernels
+        per_shard = {}
+        for name, thread, tdevs in seen:
+            k = int(thread.split("_")[0][len("fd-xfer"):])
+            expect(tdevs == {eng.devices[k]},
+                   f"[13b] {name} of shard {k} on {tdevs}, not "
+                   f"{eng.devices[k]}")
+            per_shard.setdefault(k, {"B1": 0, "B2": 0})[name] += 1
+        say(f"[13b] dp engine over {[str(d) for d in eng.devices]} "
+            f"({n_cards} visible card(s)), buckets {eng.buckets}: tiers "
+            f"{res.counts}; launches per shard {per_shard}; counted "
+            f"{launches}")
+        expect(sorted(per_shard) == list(range(n))
+               and all(v["B1"] > 0 and v["B2"] > 0
+                       for v in per_shard.values()),
+               f"[13b] a shard launched no B1 or no B2: {per_shard}")
+        expect(launches["B1"] == sum(v["B1"] for v in per_shard.values())
+               and launches["B2"] == sum(v["B2"] for v in per_shard.values()),
+               f"[13b] a shard took a plain version: {launches}")
+
+        got, want = batch(engines["dp32"]), batch(engines["one32"])
+        for nm, a, b in zip(names, got, want):
+            ra, rb = _records(a), _records(b)
+            _same_records(ra, rb, f"[13b] {nm} f32 dp vs one device")
+            expect(all(abs(x[1] - y[1]) <= 1 for x, y in zip(ra, rb)),
+                   f"[13b] {nm}: confidence off by more than one level")
+        agree = [_agreement(_records(a), _records(c)) for a, c in
+                 zip(wire, batch(one))]
+        say(f"[13b] f32: the dp engine's records equal the one-device "
+            f"engine's on the {len(names)} fixtures "
+            f"({sum(len(w) // 10 for w in got)} records, wire bytes "
+            f"identical: {got == want}); bf16 (printed): dp boxes matched "
+            f"by [4]'s one-device engine {sum(h for h, _ in agree)}/"
+            f"{sum(t for _, t in agree)} (same class, IoU >= 0.5)")
+        walls = {"dp": _batch_walls(eng, jpegs), "one": _batch_walls(one, jpegs)}
+        say(f"[13b] bf16 batch walls ms: dp "
+            f"{[round(w, 3) for w in walls['dp']]}, [4]'s one-device "
+            f"engine {[round(w, 3) for w in walls['one']]}"
+            + (" (two shards on one card: not a speedup figure)"
+               if n_cards == 1 else ""))
+    finally:
+        for e in engines.values():
+            e.close()
+
+
+def phase_ddp(torch, fixtures):
+    """[13c] the data-parallel step on NCCL over every visible card (world
+    size 1 here: a group of one rank on cuda:0): at batch 8, full width,
+    sparse loss, in bf16 and f32, the loss, every parameter, the BN
+    running statistics and the Adam moments after one step equal
+    make_train_step's bit for bit (cuDNN deterministic, as [12d]); then
+    cli.train --synthetic 4 steps at batch 4 over every card, and its
+    export serves the seven fixtures."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fastdet_tpu_torch.cli import train as train_cli
+    from fastdet_tpu_torch.models import weights
+    from fastdet_tpu_torch.parallel import train
+    from fastdet_tpu_torch.runtime.server import build_services
+
+    world = torch.cuda.device_count()
+    dev = torch.device("cuda", 0)
+    spec, params = weights.load_model(WEIGHTS)
+    tmp = tempfile.mkdtemp(prefix="fastdet-ddp-")
+    try:
+        if world == 1:
+            x8, boxes8, labels8 = _train_scenes(
+                torch, range(TRAIN_SEEDS + 2, TRAIN_SEEDS + 10), dev)
+            slots8 = torch.from_numpy(train.build_sparse_targets(
+                spec, boxes8, labels8)).to(dev)
+            torch.cuda.set_device(dev)
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1)
+            torch.backends.cudnn.deterministic = True
+            try:
+                for name, cd in (("bf16", torch.bfloat16), ("f32", None)):
+                    out = []
+                    xs, ts = train.shard_batch(None, x8, [slots8])
+                    for make in (train.make_train_step,
+                                 train.make_sharded_train_step):
+                        st = train.init_train_state(spec, params, device=dev)
+                        t0 = time.perf_counter()
+                        st, m = make(spec, compute_dtype=cd, sparse=True)(
+                            st, xs, *ts)
+                        torch.cuda.synchronize()
+                        out.append((st, float(m["loss"]),
+                                    time.perf_counter() - t0))
+                    (a, la, ta), (b, lb, tb) = out
+                    diff = _state_diff(torch, a, b)
+                    say(f"[13c] {name} sparse step, batch 8, NCCL world "
+                        f"size 1 (DDP) vs make_train_step: loss {lb!r} vs "
+                        f"{la!r}; differing state entries {diff}; step "
+                        f"walls {tb:.3f} / {ta:.3f} s (first steps)")
+                    expect(la == lb and not diff,
+                           f"[13c] {name}: the DDP step differs: {diff}")
+                    del a, b, out
+            finally:
+                torch.backends.cudnn.deterministic = False
+                dist.destroy_process_group()
+        else:
+            say(f"[13c] {world} cards: the multi-rank step runs in "
+                f"cli.train below")
+
+        out = os.path.join(tmp, "dp.npz")
+        t0 = time.perf_counter()
+        expect(train_cli.main(["train", "--synthetic", "--batch", "4",
+                               "--steps", "4", "-w", WEIGHTS, "-o",
+                               out]) == 0, "[13c] cli.train failed")
+        t1 = time.perf_counter()
+        svcs = build_services([f"full:80:{out}"], buckets=(8,))
+        try:
+            with _serving(svcs) as port:
+                replies, _ = _ask(port, "full", fixtures)
+        finally:
+            svcs["full"].engine.close()
+        expect(len(replies) == len(fixtures)
+               and all(0 < r[0] <= 80 for recs in replies.values()
+                       for r in recs),
+               "[13c] the export's service did not answer every fixture")
+        say(f"[13c] cli.train --synthetic 4 steps at batch 4 over {world} "
+            f"card(s): {t1 - t0:.2f} s; its export answered the "
+            f"{len(replies)} fixtures ({sum(map(len, replies.values()))} "
+            f"records)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_trace(torch, fixtures, services):
+    """[13d] utils/profiling.device_trace around one sparse batch: the
+    trace file exists and names B1's kernel symbol."""
+    import glob
+    import tempfile
+
+    from fastdet_tpu_torch.utils.profiling import device_trace
+
+    eng = services["full"].engine
+    jpegs = list(fixtures.values())[:3]
+    with tempfile.TemporaryDirectory(prefix="fastdet-trace-") as d:
+        eng._tier_hint.clear()
+        with device_trace(d):
+            eng.fetch_wire(eng.detect_async_sparse(jpegs, [THR] * 3), 3)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(d, "*.json"))
+        expect(len(files) == 1, f"[13d] trace files {files}")
+        with open(files[0]) as fp:
+            text = fp.read()
+        say(f"[13d] device_trace of one sparse batch: "
+            f"{os.path.basename(files[0])}, {len(text)} bytes, B1's "
+            f"sparse_tile_kernel named {text.count('sparse_tile_kernel')} "
+            f"times")
+        expect("sparse_tile_kernel" in text,
+               "[13d] the trace does not name B1's kernel")
+
+
 def kernels_line(b1, b2, launches, d):
     def entry(name, src, replaces, res, n):
         ms, plain_ms, bound_ms = res["timing"][8]
@@ -1966,6 +2375,10 @@ def main(argv) -> int:
               "run needs a CUDA card", file=sys.stderr)
         return 2
 
+    # [4]-[12] check which tier each frame rides, so their services warm
+    # every program before they serve (as the test suite's engines do);
+    # [13a] runs and checks the lazy warm-up itself
+    os.environ["FASTDET_LAZY_WARM"] = "0"
     t_start = time.time()
     name, card = phase_device(torch)
     phase_build()
@@ -1990,6 +2403,10 @@ def main(argv) -> int:
         gate, gate_ok = phase_gate(torch)
         phase_client(torch, fixtures, services)
         phase_train(torch, fixtures, replies, gate, gate_ok, card)
+        phase_lazy_warm(torch, fixtures, services, engine_records)
+        phase_sharded(torch, fixtures, services)
+        phase_ddp(torch, fixtures)
+        phase_trace(torch, fixtures, services)
     finally:
         for svc in services.values():
             svc.engine.close()

@@ -13,12 +13,8 @@ flag for flag. ``weights`` accepts fastdet .npz, darknet .weights, .onnx
 and ``synthetic[:arch]``; ``-m`` accepts bf16|f32|int8 as well as the
 reference's cpu|cuda|tensorrt values (mapped to the default, bf16);
 ``-a arch`` disambiguates a .weights architecture if needed. The engine
-runs on the CUDA card; ``main(argv, device=...)`` takes another device
+runs on the CUDA cards; ``main(argv, device=...)`` takes another device
 for callers that ask for one (the tests pass ``"cpu"``).
-
-Difference: the JAX CLI warms with ``engine.warmup(fallbacks=False)``;
-the port's warmup has no background compiles to leave out, so it warms
-the CLI's one bucket, ``(1,)``, on every route before the first image.
 """
 
 from __future__ import annotations
@@ -70,9 +66,11 @@ def main(argv, device="cuda"):
     engine = DetectionEngine(spec, params, mode=mode, buckets=(1,),
                              device=device)
     try:
-        # warm the one bucket so the first image's printed wall time is
-        # not the kernels' build and cuDNN's algorithm choice
-        engine.warmup((1,))
+        # warm the first-choice programs so the first image's printed
+        # wall time is not the kernels' build and cuDNN's algorithm
+        # choice; no fallbacks: a one-shot CLI would warm programs it
+        # will likely never run
+        engine.warmup((1,), fallbacks=False)
         detector = EngineDetector(engine, path=path)
         for img_path in args:
             with open(img_path, "rb") as fp:

@@ -12,11 +12,21 @@ Usage:
         [-w init_weights] [-o out.npz] [--steps N] [--batch B] [--lr LR]
         [--ckpt file] [--ckpt-every N] [--resume] [--synthetic | data_dir]
 
-Differences from the JAX CLI: training runs in float32 on one device (the
-card, or the device ``main(argv, device=...)`` is given; the tests pass
-``"cpu"``), where the JAX CLI spreads it over a mesh of every device;
-``--ckpt`` names one checkpoint file (parallel/checkpoint.save), where
-the JAX CLI writes an orbax directory.
+Training runs in float32 over every visible card, as the JAX CLI's
+mesh spans every device: launched plainly on a machine with more than
+one card it starts one process per card (NCCL, rank = card) and runs the
+data-parallel step (parallel/train.make_sharded_train_step); under
+``torchrun`` it joins the process group it is given; with one card it
+runs the one-device step, with no process group. ``--batch`` is the
+global batch and must divide by the number of ranks: every rank draws
+the same global batch and trains on its own rows, so the trajectory is
+the JAX CLI's whatever the card count. Rank 0 alone logs, saves
+``--ckpt`` and exports; every rank restores. ``main(argv, device=...,
+world_size=...)`` takes another device and rank count (the tests pass
+``"cpu"``: gloo ranks on the CPU).
+
+Difference from the JAX CLI: ``--ckpt`` names one checkpoint file
+(parallel/checkpoint.save), where the JAX CLI writes an orbax directory.
 """
 
 from __future__ import annotations
@@ -89,7 +99,7 @@ def real_batch(rng, items, batch, image_size):
     return images, boxes, labels
 
 
-def main(argv, device="cuda"):
+def _parse(argv):
     ap = argparse.ArgumentParser(prog=argv[0])
     ap.add_argument("data_dir", nargs="?", help="darknet-layout dataset dir")
     ap.add_argument("-a", "--arch", default="full", choices=["full", "tiny"])
@@ -108,19 +118,98 @@ def main(argv, device="cuda"):
     args = ap.parse_args(argv[1:])
     if not args.synthetic and not args.data_dir:
         ap.error("provide a data_dir or --synthetic")
+    return args
 
+
+def main(argv, device="cuda", world_size=None):
+    """Train as the module docstring says. ``world_size`` (default: the
+    card count for a bare ``"cuda"``, else 1) is the number of ranks to
+    start, one per card (``cuda:rank``), or gloo ranks on the CPU."""
+    args = _parse(argv)
     logging.basicConfig(format="%(asctime)s %(levelname)s %(message)s",
                         level=logging.INFO)
 
     import torch
+    import torch.distributed as dist
 
     from fastdet_tpu_torch import device as device_mod
+    from fastdet_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = device_mod.resolve(device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        # under torchrun: join the group it describes, one card a rank
+        rank = int(os.environ["RANK"])
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                          rank)))
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+        try:
+            return _train(args, dev)
+        finally:
+            dist.destroy_process_group()
+    if world_size is None:   # a ('dp',) mesh over every visible card
+        world_size = (mesh_lib.make_mesh().dp
+                      if dev.type == "cuda" and dev.index is None else 1)
+    if world_size <= 1:
+        return _train(args, dev)
+    if args.batch % world_size:
+        raise SystemExit(f"--batch {args.batch} does not split over "
+                         f"{world_size} ranks")
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="fastdet-train-") as tmp:
+        # a file store: the ranks meet without a port
+        mp.spawn(_rank, args=(argv, dev.type, world_size,
+                              os.path.join(tmp, "store")),
+                 nprocs=world_size, join=True)
+    return 0
+
+
+def _rank(rank, argv, device_type, world_size, store):
+    """One spawned rank: its card (or the CPU), the group, the run."""
+    import torch
+    import torch.distributed as dist
+
+    logging.basicConfig(format="%(asctime)s %(levelname)s %(message)s",
+                        level=logging.INFO)
+
+    dev = (torch.device("cuda", rank) if device_type == "cuda"
+           else torch.device("cpu"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl" if device_type == "cuda" else "gloo",
+        store=dist.FileStore(store, world_size), rank=rank,
+        world_size=world_size)
+    try:
+        _train(_parse(argv), dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, dev) -> int:
+    """The training loop on ``dev``: the data-parallel step on this
+    rank's rows when a process group is active, else the one-device
+    step."""
+    import torch
+    import torch.distributed as dist
+
     from fastdet_tpu_torch.models import weights as weights_io
     from fastdet_tpu_torch.models import yolov3
     from fastdet_tpu_torch.parallel import checkpoint as ckpt_lib
     from fastdet_tpu_torch.parallel import train as train_lib
 
-    dev = device_mod.resolve(device)
+    sharded = dist.is_available() and dist.is_initialized()
+    rank = dist.get_rank() if sharded else 0
+    world = dist.get_world_size() if sharded else 1
+    if rank:
+        logger.setLevel(logging.WARNING)
+    if args.batch % world:
+        raise SystemExit(f"--batch {args.batch} does not split over "
+                         f"{world} ranks")
     spec = yolov3.get_spec(args.arch, args.classes)
     if args.image_size != 416:
         spec = yolov3.ModelSpec(spec.name, spec.num_classes, spec.layers,
@@ -131,10 +220,12 @@ def main(argv, device="cuda"):
     else:
         params = weights_io.synthetic_params(spec)
 
-    logger.info("device: %s", torch.cuda.get_device_name(dev)
-                if dev.type == "cuda" else dev)
+    logger.info("mesh: {'dp': %d}; rank 0 on %s", world,
+                torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else dev)
     state = train_lib.init_train_state(spec, params, lr=args.lr, device=dev)
-    step_fn = train_lib.make_train_step(spec)
+    step_fn = (train_lib.make_sharded_train_step(spec) if sharded
+               else train_lib.make_train_step(spec))
     if args.resume and args.ckpt and os.path.exists(args.ckpt):
         state = ckpt_lib.restore(args.ckpt, state)
         logger.info("resumed at step %d", state.step)
@@ -151,22 +242,29 @@ def main(argv, device="cuda"):
             images, boxes, labels = real_batch(rng, items, args.batch,
                                                spec.image_size)
         targets = train_lib.build_targets(spec, boxes, labels)
+        if sharded:
+            images, targets = train_lib.shard_batch(None, images, targets)
         state, metrics = step_fn(
             state, torch.from_numpy(images).to(dev),
             *[torch.from_numpy(t).to(dev) for t in targets])
         if (step + 1) % args.log_every == 0:
+            if sharded:   # the global batch's loss: the ranks' mean
+                for v in metrics.values():
+                    dist.all_reduce(v)
+                    v /= world
             m = {k: float(v) for k, v in metrics.items()}
             rate = (step + 1 - start) * args.batch / (time.time() - t0)
             logger.info("step %d loss=%.3f coord=%.3f obj=%.3f cls=%.3f "
                         "(%.1f img/s)", step + 1, m["loss"], m["coord"],
                         m["obj"], m["cls"], rate)
-        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+        if args.ckpt and (step + 1) % args.ckpt_every == 0 and rank == 0:
             ckpt_lib.save(args.ckpt, state)
             logger.info("checkpoint saved at step %d", step + 1)
 
-    ckpt_lib.export_inference(args.out, spec, state)
-    logger.info("wrote %s (servable: name:%d:%s)", args.out, args.classes,
-                args.out)
+    if rank == 0:
+        ckpt_lib.export_inference(args.out, spec, state)
+        logger.info("wrote %s (servable: name:%d:%s)", args.out,
+                    args.classes, args.out)
     return 0
 
 

@@ -74,13 +74,57 @@ def batch_norm_train_stats(x: torch.Tensor, gamma: torch.Tensor,
     (the JAX package's ``jnp.var``); ``y`` is ``(x - mean) * rsqrt(var +
     eps) * gamma + beta`` at that precision, cast back to ``x``'s dtype.
     No ``nn.BatchNorm2d``: its running-stat update uses the unbiased
-    variance and another momentum convention."""
+    variance and another momentum convention.
+
+    Under a process group of more than one rank (the data-parallel step,
+    parallel/train.make_sharded_train_step) the statistics are the
+    global batch's, as the JAX step's under GSPMD: :func:`_global_var_mean`.
+    """
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-    var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+    if _world_size() > 1:
+        var, mean = _global_var_mean(x32)
+    else:
+        var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
     inv = torch.rsqrt(var + BN_EPS)
     y = ((x32 - mean[:, None, None]) * inv[:, None, None]
          * gamma[:, None, None] + beta[:, None, None])
     return y.to(x.dtype), mean, var
+
+
+def _world_size() -> int:
+    dist = torch.distributed
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks of the default group; the backward pass sums the
+    gradients the same way, so each rank's rows get the gradient of every
+    rank's loss through the shared statistic."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.clone()
+        torch.distributed.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        torch.distributed.all_reduce(g)
+        return g
+
+
+def _global_var_mean(x32: torch.Tensor):
+    """(biased var, mean) per channel over every rank's (N, H, W), the
+    two-pass ``jnp.var`` of the JAX step: all-reduce the per-channel sums
+    for the mean, then the sums of squared deviations from it. Every rank
+    holds an equal shard."""
+    count = x32.shape[0] * x32.shape[2] * x32.shape[3] * _world_size()
+    mean = _AllReduceSum.apply(x32.sum(dim=(0, 2, 3))) / count
+    dev = x32 - mean[:, None, None]
+    var = _AllReduceSum.apply((dev * dev).sum(dim=(0, 2, 3))) / count
+    return var, mean
 
 
 def conv_bn_block_train(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

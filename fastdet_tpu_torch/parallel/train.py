@@ -16,11 +16,18 @@ the conv kernels only (the update of ``optax.adamw`` with the JAX
 package's mask), then moves BN's running statistics by the EMA of this
 step's batch statistics, after the optimizer update as in the JAX step.
 
+The data-parallel step (:func:`make_sharded_train_step`, one process per
+device, each on its rows of the global batch from :func:`shard_batch`)
+computes the JAX package's global-batch step: BN's batch statistics are
+all-reduced over the ranks (models/layers.batch_norm_train_stats), each
+rank's loss divides by its own rows, and DDP's mean of the ranks'
+gradients is then the gradient of the global loss.
+
 Differences from the JAX module: :class:`TrainState` holds the network
 and its optimizer (torch optimizers are bound to their parameters), so
 :func:`make_train_step` takes no optimizer and the step updates the state
-in place; the sharded step over a device mesh (``make_sharded_train_step``,
-``shard_batch``) is not ported yet.
+in place; the sharded step takes the process group's ranks for its mesh
+and has no 'tp' axis (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -369,19 +376,13 @@ def init_train_state(spec: ModelSpec, params: Dict[str, Any], *,
     return TrainState(net, make_optimizer(net, lr, weight_decay), 0)
 
 
-def make_train_step(spec: ModelSpec, *, compute_dtype=None,
-                    sparse: bool = False):
-    """The train step fn(state, images, *targets) -> (state, metrics).
-
-    One forward and backward, the optimizer update, then the EMA of BN's
-    running statistics from this step's batch statistics; ``state`` is
-    updated in place. ``sparse=True`` builds the slot-row variant:
-    fn(state, images, slots) with slots from :func:`build_sparse_targets`.
-    The metrics are detached tensors of the loss before the update."""
+def _step(spec: ModelSpec, compute_dtype, sparse: bool, forward_net):
+    """The train step over ``forward_net(state)``, the module that runs
+    the forward: the state's TrainNet, or its DDP wrapper."""
 
     def step_fn(state: TrainState, images: torch.Tensor,
                 *targets: torch.Tensor):
-        net, opt = state.net, state.optimizer
+        net, opt = forward_net(state), state.optimizer
         opt.zero_grad(set_to_none=True)
         if sparse:
             total, metrics = yolo_loss_sparse(
@@ -397,7 +398,7 @@ def make_train_step(spec: ModelSpec, *, compute_dtype=None,
         # EMA the BN running statistics used by the folded inference path
         with torch.no_grad():
             for name, (mean, var) in bn_stats.items():
-                conv = net.convs[name]
+                conv = state.net.convs[name]
                 conv.mean.copy_(BN_MOMENTUM * conv.mean
                                 + (1 - BN_MOMENTUM) * mean)
                 conv.var.copy_(BN_MOMENTUM * conv.var
@@ -406,3 +407,59 @@ def make_train_step(spec: ModelSpec, *, compute_dtype=None,
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step_fn
+
+
+def make_train_step(spec: ModelSpec, *, compute_dtype=None,
+                    sparse: bool = False):
+    """The train step fn(state, images, *targets) -> (state, metrics).
+
+    One forward and backward, the optimizer update, then the EMA of BN's
+    running statistics from this step's batch statistics; ``state`` is
+    updated in place. ``sparse=True`` builds the slot-row variant:
+    fn(state, images, slots) with slots from :func:`build_sparse_targets`.
+    The metrics are detached tensors of the loss before the update."""
+    return _step(spec, compute_dtype, sparse, lambda state: state.net)
+
+
+def shard_batch(group, images, targets: Sequence):
+    """This rank's rows of a global batch: (images[rows], targets'
+    rows), numpy arrays or tensors alike. ``group`` is the process group
+    (None: the default group); the batch must split into equal shards,
+    one per rank (the JAX ``shard_batch`` places the rows of each device
+    the same way)."""
+    import torch.distributed as dist
+
+    from fastdet_tpu_torch.parallel import mesh
+
+    rows = mesh.shard_rows(len(images), dist.get_world_size(group),
+                           dist.get_rank(group))
+    return images[rows], tuple(t[rows] for t in targets)
+
+
+def make_sharded_train_step(spec: ModelSpec, *, compute_dtype=None,
+                            sparse: bool = False):
+    """The data-parallel train step fn(state, images, *targets) over the
+    default process group: each rank passes its rows
+    (:func:`shard_batch`) and its own replica of one state.
+
+    The forward runs through ``DistributedDataParallel`` over the state's
+    TrainNet (made at the first step, kept for the net), which averages
+    the ranks' gradients; with more than one rank BN normalises with the
+    global batch's statistics, so the step, the BN EMA and the loss are
+    the JAX global-batch step's. Buffers are not broadcast: every rank
+    computes the same EMA. At world size 1 the step is
+    :func:`make_train_step`'s."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    wrapped: Dict[TrainNet, DistributedDataParallel] = {}
+
+    def ddp_of(state: TrainState):
+        ddp = wrapped.get(state.net)
+        if ddp is None:
+            dev = next(state.net.parameters()).device
+            ddp = wrapped[state.net] = DistributedDataParallel(
+                state.net, device_ids=[dev] if dev.type == "cuda" else None,
+                broadcast_buffers=False)
+        return ddp
+
+    return _step(spec, compute_dtype, sparse, ddp_of)

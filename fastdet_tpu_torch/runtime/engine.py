@@ -22,6 +22,19 @@ Engine properties kept from the JAX engine:
 - **Async dispatch.** detect_async* return at once; a transfer worker
   copies the batch and runs the device program, and fetch()/fetch_wire()
   wait for it, so the serving loop decodes the next batch meanwhile.
+- **Data-parallel serving.** Over n > 1 devices (every visible card by
+  default) the buckets are rounded to multiples of n, every device holds
+  a replica of the network, and each batch splits into n equal shards of
+  rows: shard k is copied to device k and runs the whole pipeline there
+  (kernels B1/B2 on that device's stream, the net, decode, soft-NMS and
+  wire packing) on its own transfer worker, so the shards' soft-NMS loops
+  sync each with its own card concurrently; fetch() gathers the rows in
+  order. The JAX engine's shard_map over its 'dp' mesh does the same.
+- **Lazy warm-up.** warmup() runs the first-choice programs (pixels at
+  the smallest bucket, the std sparse tier) before it returns and the
+  fallbacks (dense tier, planes, larger pixel buckets) on a background
+  thread with its own stream per device; until a fallback is warm, the
+  routers send its frames down the ladder that is (see warmup()).
 
 - **Graph forms.** The space-to-depth stem rewrite (models/s2d.py) is
   applied in every mode wherever the stem matches; ``-m int8`` calibrates
@@ -32,16 +45,17 @@ Engine properties kept from the JAX engine:
   detect_async_jpeg (host entropy decode into int16 coefficients, device
   dequant + IDCT + colour: the coefficient path) and detect_async (host
   pixels).
-
-Left for later: lazy background warmup and the multi-device dp mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import glob
 import logging
 import math
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -54,6 +68,7 @@ from fastdet_tpu_torch.models import quantize, s2d, weights
 from fastdet_tpu_torch.models.yolov3 import ModelSpec, YoloNet
 from fastdet_tpu_torch.ops import jpeg_device, nms, plane_ingest, postprocess
 from fastdet_tpu_torch.ops import sparse_ingest
+from fastdet_tpu_torch.parallel import mesh as mesh_lib
 from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
 from fastdet_tpu_torch.runtime import native_jpeg
 
@@ -281,6 +296,39 @@ class PlanesDispatch:
         self.unresolved = tuple(unresolved)
 
 
+class _Gathered:
+    """The Future of a dp dispatch: the shards' (packed, wire) results,
+    concatenated on the host in row order once every shard is done."""
+
+    def __init__(self, futures):
+        self._futures = futures
+        self._out = None
+
+    def result(self):
+        if self._out is None:
+            parts = [f.result() for f in self._futures]
+            self._out = tuple(torch.cat([p[i].cpu() for p in parts])
+                              for i in range(2))
+        return self._out
+
+
+def _warm_layouts() -> List[Tuple[int, int]]:
+    """FASTDET_WARM_LAYOUTS (default "22,21": 4:2:0, the mobile clients'
+    layout, and 4:2:2, the reference fixtures'), as the JAX engine reads
+    it; other layouts run their first batch cold."""
+    out = []
+    for tok in os.environ.get("FASTDET_WARM_LAYOUTS", "22,21").split(","):
+        tok = tok.strip()
+        if len(tok) != 2 or not tok.isdigit():
+            continue
+        layout = (int(tok[0]), int(tok[1]))
+        if layout not in native_jpeg.PLANE_LAYOUTS:
+            logger.warning("FASTDET_WARM_LAYOUTS: ignoring %r", tok)
+            continue
+        out.append(layout)
+    return out
+
+
 class DetectionEngine:
     def __init__(
         self,
@@ -293,14 +341,25 @@ class DetectionEngine:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         folded: bool = False,
         device="cuda",
+        devices: Optional[Sequence] = None,
         calibration_images: Optional[np.ndarray] = None,
     ):
-        """``calibration_images`` (N, H, W, 3) uint8 are the int8 mode's
+        """``devices`` lists the dp mesh's devices, one shard each (the
+        JAX engine's argument); when it is None, a bare ``"cuda"`` device
+        means every visible card, as ``jax.devices()`` does, and
+        ``"cuda:k"`` or ``"cpu"`` that one device.
+        ``calibration_images`` (N, H, W, 3) uint8 are the int8 mode's
         calibration frames (else FASTDET_CALIB_DIR, else synthetic
         scenes)."""
         if mode not in _COMPUTE_DTYPES:
             raise ValueError(f"unknown mode {mode!r}")
-        self.device = device_mod.resolve(device)
+        if devices is None:
+            dev = device_mod.resolve(device)
+            if not (dev.type == "cuda" and dev.index is None):
+                devices = [dev]
+        self.devices = tuple(mesh_lib.make_devices(devices))
+        self.n_devices = len(self.devices)
+        self.device = self.devices[0]
         device_mod.strict_fp32()
         self.mode = mode
         self.compute_dtype = _COMPUTE_DTYPES[mode]
@@ -319,7 +378,9 @@ class DetectionEngine:
             # Calibrate on the CANONICAL graph, before the stem rewrite:
             # the float forward sums in another order in the two graph
             # forms, and with one set of scales the rewritten int8
-            # network stays bit-exact to the canonical one.
+            # network stays bit-exact to the canonical one. One
+            # calibration on the first device: every replica quantizes
+            # with the same scales.
             calib = calibration_images
             if calib is None:
                 calib = _calibration_from_dir(spec.image_size)
@@ -336,31 +397,56 @@ class DetectionEngine:
         if mode == "int8":
             self.qparams = quantize.quantize_params(spec, folded_params,
                                                     self.act_scales)
-            self.net = quantize.Int8Net(spec, self.qparams,
-                                        device=self.device).eval()
+            self.nets = [quantize.Int8Net(spec, self.qparams,
+                                          device=d).eval()
+                         for d in self.devices]
         else:
-            self.net = YoloNet(spec, folded_params,
-                               dtype=self.compute_dtype,
-                               device=self.device).eval()
-        self.buckets = tuple(sorted(buckets))
+            self.nets = [YoloNet(spec, folded_params,
+                                 dtype=self.compute_dtype,
+                                 device=d).eval()
+                         for d in self.devices]
+        buckets = tuple(sorted(buckets))
+        if self.n_devices > 1:
+            buckets = mesh_lib.dp_buckets(buckets, self.n_devices)
+        self.buckets = buckets
         self.max_batch = self.buckets[-1]
         # Tier memory: layout -> "dense" when recent traffic of that
         # layout mostly overflowed the std tier (see detect_async_sparse)
         self._tier_hint: Dict[Tuple[int, int], str] = {}
-        # One transfer worker copies each batch to the device and runs
-        # its program (the soft-NMS loop syncs with the host, so the
+        # One transfer worker per shard copies its rows to its device and
+        # runs the program (the soft-NMS loop syncs with the host, so the
         # caller must not run it); one decode pool entropy-decodes the
         # frames of a batch in parallel (the native decoder releases the
-        # GIL). Both are joined by close().
-        self._xfer = ThreadPoolExecutor(1, thread_name_prefix="fd-xfer")
+        # GIL). All are joined by close().
+        self._xfers = [ThreadPoolExecutor(1, thread_name_prefix=f"fd-xfer{k}")
+                       for k in range(self.n_devices)]
         ncpu = os.cpu_count() or 1
         self._decode = (ThreadPoolExecutor(min(8, ncpu),
                                            thread_name_prefix="fd-decode")
                         if ncpu > 1 else None)
+        # Programs still warming on the background thread (see warmup):
+        # routing treats these paths as unavailable instead of making a
+        # request wait for their first run.
+        self._lazy_pending: set = set()
+        self._lazy_thread: Optional[threading.Thread] = None
+        self.background_warm_s: Optional[float] = None
+        #: per-program warm-up wall seconds, keyed by str(tag) of the JAX
+        #: engine's tags: ("pixels", b), ("sparse", layout, tier, b),
+        #: ("planes", layout, b)
+        self.warm_attribution: Dict[str, float] = {}
+
+    @property
+    def net(self):
+        """The first replica (the only one on a one-device engine)."""
+        return self.nets[0]
 
     def close(self) -> None:
-        """Join the engine's worker threads (pending work finishes)."""
-        self._xfer.shutdown(wait=True)
+        """Join the engine's threads: the background warm-up first, then
+        the workers (pending work finishes)."""
+        if self._lazy_thread is not None:
+            self._lazy_thread.join()
+        for x in self._xfers:
+            x.shutdown(wait=True)
         if self._decode is not None:
             self._decode.shutdown(wait=True)
 
@@ -368,24 +454,40 @@ class DetectionEngine:
     # Device programs
     # ------------------------------------------------------------------
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+    @staticmethod
+    def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
         t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
         return t
+
+    def _run_shard(self, fn, k: int, arrays):
+        """Copy shard k's ``arrays`` to its device and run ``fn`` there
+        on the current stream."""
+        dev = self.devices[k]
+        with torch.inference_mode():
+            return fn(*[self._to_device(a, dev) for a in arrays], shard=k)
 
     def _dispatch_async(self, fn, *arrays: np.ndarray):
         """Queue (copy inputs to the device, run ``fn``) on the transfer
-        worker; returns a Future of fn's (packed, wire) result."""
-        def run():
-            with torch.inference_mode():
-                return fn(*[self._to_device(a) for a in arrays])
-        return self._xfer.submit(run)
+        worker; returns a Future of fn's (packed, wire) result. On a dp
+        engine each shard's rows go to its own worker and device, and
+        the Future gathers them in row order."""
+        n = self.n_devices
+        if n == 1:
+            return self._xfers[0].submit(self._run_shard, fn, 0, arrays)
+        return _Gathered([
+            self._xfers[k].submit(
+                self._run_shard, fn, k,
+                [a[mesh_lib.shard_rows(len(a), n, k)] for a in arrays])
+            for k in range(n)])
 
-    def _postprocess_tail(self, x: torch.Tensor, thresholds: torch.Tensor):
+    def _postprocess_tail(self, x: torch.Tensor, thresholds: torch.Tensor,
+                          shard: int = 0):
         """(B, H, W, 3) f32 frames -> (packed (B, max_det, 7) f32
-        [x, y, w, h, score, klass, valid], wire (B, max_det*10+4) u8)."""
-        heads = self.net(x)
+        [x, y, w, h, score, klass, valid], wire (B, max_det*10+4) u8),
+        through shard ``shard``'s replica of the net."""
+        heads = self.nets[shard](x)
         sel_b, sel_s, sel_k = postprocess.select_batch(
             heads, self.spec, thresholds, self.max_candidates)
         res = nms.soft_nms_batch(sel_b, sel_s, sel_k, thresholds,
@@ -397,9 +499,10 @@ class DetectionEngine:
         return packed, postprocess.pack_wire_records(res,
                                                      self.spec.image_size)
 
-    def _pipeline(self, images_u8: torch.Tensor, thresholds: torch.Tensor):
+    def _pipeline(self, images_u8: torch.Tensor, thresholds: torch.Tensor,
+                  shard: int = 0):
         x = images_u8.to(torch.float32) * (1.0 / 255.0)
-        return self._postprocess_tail(x, thresholds)
+        return self._postprocess_tail(x, thresholds, shard)
 
     @staticmethod
     def _row_thresholds(packed: torch.Tensor, start: int) -> torch.Tensor:
@@ -408,15 +511,16 @@ class DetectionEngine:
             torch.float32)[:, 0]
 
     def _pipeline_coeffs(self, ycoef, cbcoef, crcoef, qy, qc,
-                         thresholds):
+                         thresholds, shard: int = 0):
         """Coefficient path: the host entropy-decodes, the device runs
         dequant + IDCT + upsample + colour (decode420_batch) and the net."""
         size = self.spec.image_size
         x = jpeg_device.decode420_batch(ycoef, cbcoef, crcoef, qy, qc,
                                         size, size)
-        return self._postprocess_tail(x, thresholds)
+        return self._postprocess_tail(x, thresholds, shard)
 
-    def _pipeline_planes(self, packed: torch.Tensor, layout=(2, 2)):
+    def _pipeline_planes(self, packed: torch.Tensor, layout=(2, 2),
+                         shard: int = 0):
         """Host Huffman + IDCT (native), device upsample + colour + net:
         rows [Y | Cb | Cr | thr]. 4:2:0 goes through kernel B2."""
         hs, vs = layout
@@ -435,7 +539,7 @@ class DetectionEngine:
                 y.to(torch.float32),
                 jpeg_device.upsample_chroma(cb, hs, vs),
                 jpeg_device.upsample_chroma(cr, hs, vs))
-        return self._postprocess_tail(x, thresholds)
+        return self._postprocess_tail(x, thresholds, shard)
 
     # ------------------------------------------------------------------
     # Packed sparse coefficient ingest (the fewest-bytes path)
@@ -448,7 +552,7 @@ class DetectionEngine:
                            self._sparse_budgets[tier])
 
     def _pipeline_sparse(self, packed: torch.Tensor, layout=(2, 2),
-                         tier="std"):
+                         tier="std", shard: int = 0):
         hs, vs = layout
         size = self.spec.image_size
         caps = self._sparse_caps(layout, tier)
@@ -477,7 +581,7 @@ class DetectionEngine:
         x = jpeg_device.coeffs_to_rgb01(coeff, q[:, 0], q[:, 1], q[:, 2],
                                         size, size, hs, vs)
         return self._postprocess_tail(
-            x, self._row_thresholds(packed, qstart + 384))
+            x, self._row_thresholds(packed, qstart + 384), shard)
 
     def _stage_sparse(self, jpegs, thr_all, groups, tier):
         """Allocate packed rows + decode jobs for {layout: [indices]}."""
@@ -619,6 +723,14 @@ class DetectionEngine:
                 for lay, idxs in dense_start.items():
                     pending.setdefault(lay, []).extend(idxs)
                     pending[lay].sort()
+                # Lazy warm-up: while the dense-tier program still warms
+                # on the background thread, over-budget frames ride
+                # planes or pixels instead of waiting for it.
+                for lay in [l for l, idxs in pending.items()
+                            if not self._path_ready(
+                                ("sparse", l, "dense",
+                                 self.bucket_for(len(idxs))))]:
+                    to_planes.extend(pending.pop(lay))
             if not pending:
                 continue
             staged, jobs = self._stage_sparse(jpegs, thr_all, pending, tier)
@@ -659,9 +771,8 @@ class DetectionEngine:
                     packed[: len(keep)] = packed[keep]
                     packed[len(keep):len(idxs)] = 0
                     packed[len(keep):len(idxs), -4:] = _THR_PAD_BYTES
-                res = self._dispatch_async(
-                    lambda p, layout=layout, tier=tier:
-                    self._pipeline_sparse(p, layout, tier), packed)
+                res = self._dispatch_async(functools.partial(
+                    self._pipeline_sparse, layout=layout, tier=tier), packed)
                 parts.append((res, [idxs[k] for k in keep]))
                 counts[count_key] = counts.get(count_key, 0) + len(keep)
                 tags.append(tag_fmt % layout)
@@ -714,6 +825,13 @@ class DetectionEngine:
                 probe_failed.append(i)
                 continue
             groups.setdefault((hs, vs), []).append(i)
+        # Lazy warm-up: groups whose plane program still warms on the
+        # background thread fall through to the pixel path (unresolved)
+        # instead of waiting for it.
+        for lay in [l for l, idxs in groups.items()
+                    if not self._path_ready(
+                        ("planes", l, self.bucket_for(len(idxs))))]:
+            probe_failed.extend(groups.pop(lay))
         if not groups:
             return None
 
@@ -767,9 +885,8 @@ class DetectionEngine:
                 packed[len(keep):len(idxs), :yb] = 0
                 packed[len(keep):len(idxs), yb:yb + 2 * cw] = 128
                 packed[len(keep):len(idxs), -4:] = _THR_PAD_BYTES
-            res = self._dispatch_async(
-                lambda p, layout=layout: self._pipeline_planes(p, layout),
-                packed)
+            res = self._dispatch_async(functools.partial(
+                self._pipeline_planes, layout=layout), packed)
             parts.append((res, [idxs[k] for k in keep]))
             tags.append("planes:%d%d" % layout)
         return PlanesDispatch(
@@ -783,36 +900,121 @@ class DetectionEngine:
                 return b
         return self.buckets[-1]
 
-    def warmup(self, buckets: Optional[Sequence[int]] = None) -> float:
-        """Run every program once per bucket on neutral inputs (builds
-        the kernels, lets cuDNN pick its algorithms); returns seconds."""
+    def warmup(self, buckets: Optional[Sequence[int]] = None,
+               fallbacks: bool = True) -> float:
+        """Run each serving program once per bucket on neutral inputs
+        (builds the kernels, lets cuDNN pick its algorithms and the
+        allocator grow); returns the seconds until the first-choice
+        programs are warm.
+
+        As the JAX engine splits its compiles: the first-choice programs
+        (pixels at the smallest bucket, the std sparse tier per warm
+        layout and bucket) run before warmup returns; the fallbacks (the
+        dense tier, planes, larger pixel buckets) run on a background
+        thread, each shard on its own device and stream, so no serving
+        work queues behind them. Until a fallback is warm the routers
+        send its frames down the ladder that is (dense -> planes ->
+        pixels). FASTDET_LAZY_WARM=0 runs everything before returning.
+        ``fallbacks=False`` leaves the fallbacks out (they run cold on
+        first use): one-shot CLIs would otherwise warm programs they
+        will likely never run. ``buckets`` are rounded to the engine's."""
         t0 = time.time()
         size = self.spec.image_size
-        for b in (buckets or self.buckets):
+        warm_sparse = size % 16 == 0 and native_jpeg.available()
+        lazy = os.environ.get("FASTDET_LAZY_WARM", "1") != "0"
+        jobs = []       # (fn, arrays, batch, tag), run before returning
+        lazy_jobs = []  # the same, on the background thread
+        warm_buckets = sorted({self.bucket_for(b)
+                               for b in (buckets or self.buckets)})
+        for b in warm_buckets:
             thr = np.full((b,), 0.1, np.float32)
-            runs = [(self._pipeline,
-                     (np.zeros((b, size, size, 3), np.uint8), thr))]
-            if size % 16 == 0:
-                for layout in ((2, 2), (2, 1)):
-                    hs, vs = layout
-                    for tier in ("std", "dense"):
-                        caps = self._sparse_caps(layout, tier)
-                        pk = np.zeros((b, sparse_row_bytes(caps)),
-                                      np.uint8)
-                        pk[:, -4:] = thr.view(np.uint8).reshape(b, 4)
-                        runs.append((lambda p, l=layout, t=tier:
-                                     self._pipeline_sparse(p, l, t), (pk,)))
-                    cw = (size // vs) * (size // hs)
-                    pk = np.full((b, size * size + 2 * cw + 4), 128, np.uint8)
+            job = (self._pipeline,
+                   (np.zeros((b, size, size, 3), np.uint8), thr), b,
+                   ("pixels", b))
+            (lazy_jobs if lazy and fallbacks and b != warm_buckets[0]
+             else jobs).append(job)
+            if not warm_sparse:
+                continue
+            for layout in _warm_layouts():
+                hs, vs = layout
+                for tier in ("std", "dense") if fallbacks else ("std",):
+                    caps = self._sparse_caps(layout, tier)
+                    pk = np.zeros((b, sparse_row_bytes(caps)), np.uint8)
                     pk[:, -4:] = thr.view(np.uint8).reshape(b, 4)
-                    runs.append((lambda p, l=layout:
-                                 self._pipeline_planes(p, l), (pk,)))
-            for fn, args in runs:
-                self.fetch_wire(self._dispatch_async(fn, *args), b)
+                    job = (functools.partial(self._pipeline_sparse,
+                                             layout=layout, tier=tier),
+                           (pk,), b, ("sparse", layout, tier, b))
+                    (lazy_jobs if lazy and tier == "dense"
+                     else jobs).append(job)
+                if not fallbacks:
+                    continue
+                cw = (size // vs) * (size // hs)
+                pk = np.full((b, size * size + 2 * cw + 4), 128, np.uint8)
+                pk[:, -4:] = thr.view(np.uint8).reshape(b, 4)
+                job = (functools.partial(self._pipeline_planes,
+                                         layout=layout),
+                       (pk,), b, ("planes", layout, b))
+                (lazy_jobs if lazy else jobs).append(job)
+
+        for fn, arrays, b, tag in jobs:
+            t_job = time.time()
+            res = self._dispatch_async(fn, *arrays)
+            self.fetch(res, b)        # the CLI's path: packed results
+            self.fetch_wire(res, b)   # the server's: wire records
+            self.warm_attribution[str(tag)] = time.time() - t_job
         dt = time.time() - t0
-        logger.info("engine warmup: %s buckets=%s in %.1fs", self.spec.name,
-                    self.buckets, dt)
+
+        if lazy_jobs:
+            self._lazy_pending.update(tag for _, _, _, tag in lazy_jobs)
+            self._lazy_thread = threading.Thread(
+                target=self._background_warm, args=(lazy_jobs,),
+                daemon=True, name="fd-bg-warm")
+            self._lazy_thread.start()
+        logger.info("engine warmup: %s buckets=%s in %.1fs (background "
+                    "programs: %d)", self.spec.name, self.buckets, dt,
+                    len(lazy_jobs))
         return dt
+
+    def _background_warm(self, jobs) -> None:
+        """The lazy set of warmup(): each program on every shard, on a
+        stream of the warm thread's own per device (serving stays on the
+        workers and the current stream), results read back on it."""
+        t1 = time.time()
+        n = self.n_devices
+        streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                   for d in self.devices]
+        for fn, arrays, b, tag in jobs:
+            t_job = time.time()
+            try:
+                for k in range(n):
+                    rows = [a[mesh_lib.shard_rows(len(a), n, k)]
+                            for a in arrays]
+                    ctx = (torch.cuda.stream(streams[k])
+                           if streams[k] is not None
+                           else contextlib.nullcontext())
+                    with ctx:
+                        for t in self._run_shard(fn, k, rows):
+                            t.cpu()
+                self.warm_attribution[str(tag)] = time.time() - t_job
+            except Exception:  # the program then runs cold on first use
+                logger.exception("background warm of %s failed", tag)
+            finally:
+                self._lazy_pending.discard(tag)
+        self.background_warm_s = time.time() - t1
+        logger.info("engine background warm: %s in %.1fs", self.spec.name,
+                    self.background_warm_s)
+
+    def wait_warm(self, timeout: Optional[float] = None) -> None:
+        """Block until the background warm-up (if any) finishes."""
+        t = self._lazy_thread
+        if t is not None:
+            t.join(timeout)
+
+    def _path_ready(self, key) -> bool:
+        """False while ``key``'s program still warms on the background
+        thread. An engine that never ran warmup() has nothing pending:
+        every path runs cold on first use (tests, CLIs)."""
+        return key not in self._lazy_pending
 
     # ------------------------------------------------------------------
     # Synchronous API

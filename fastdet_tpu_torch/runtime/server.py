@@ -667,6 +667,7 @@ def build_services(
     dbgout: Optional[str] = None,
     warmup: bool = True,
     device: str = "cuda",
+    devices=None,
     buckets: Optional[Tuple[int, ...]] = None,
     calibration_images=None,
 ) -> Dict[str, object]:
@@ -674,9 +675,10 @@ def build_services(
     registry arguments (server.py:354-358); empty -> {'detect': dummy}
     (server.py:359-360). ``path`` is any weights.load_model form (.npz,
     darknet .weights cached as .weights.npz, .onnx, synthetic[:arch]).
-    Engines run on ``device`` (the card unless the
-    caller asks for the CPU), with the engine's default batch buckets
-    unless ``buckets`` is given; ``mode="int8"`` engines calibrate on
+    Engines run on ``device`` and ``devices`` as DetectionEngine takes
+    them (every visible card unless the caller asks otherwise; the
+    batcher fills each engine's max_batch), with the engine's default
+    batch buckets unless ``buckets`` is given; ``mode="int8"`` engines calibrate on
     ``calibration_images`` ((N, H, W, 3) uint8) when given.
     """
     services: Dict[str, object] = {}
@@ -691,6 +693,7 @@ def build_services(
         spec, params = cached_import(path, num_classes=int(num_classes))
         kw = {} if buckets is None else {"buckets": buckets}
         engine = DetectionEngine(spec, params, mode=mode, device=device,
+                                 devices=devices,
                                  calibration_images=calibration_images,
                                  **kw)
         if warmup:

@@ -7,8 +7,9 @@ SentTime/RecvTime delta (SURVEY.md §5). Here:
 - :class:`StageTimer` — lock-free per-stage duration histograms (decode /
   infer / fetch / batch-wait / e2e), cheap enough for the hot path, with
   p50/p90/p99 summaries and periodic log emission;
-- a device-trace scope (the JAX package's ``device_trace``) is not
-  ported yet.
+- :func:`device_trace` — a ``torch.profiler`` scope (host and CUDA
+  activity) that writes a Chrome trace, the counterpart of the JAX
+  package's ``jax.profiler`` scope.
 
 The wire-level msec field stays bit-compatible (DetectSession reports it
 exactly like the reference); this module is additive observability.
@@ -101,3 +102,28 @@ def _log_every_env() -> Optional[int]:
 
 #: process-global timer used by the serving runtime
 GLOBAL = StageTimer(log_every=_log_every_env())
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: Optional[str] = None) -> Iterator[None]:
+    """torch.profiler trace scope. No-op unless a directory is given or
+    FASTDET_TRACE_DIR is set; otherwise traces the host and, where a
+    card is present, its CUDA activity, and writes one Chrome trace
+    (``trace-<pid>-<ns>.json``) into the directory."""
+    trace_dir = trace_dir or os.environ.get("FASTDET_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(trace_dir,
+                        f"trace-{os.getpid()}-{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    logger.info("device trace written to %s", path)
