@@ -34,9 +34,12 @@ Drives the port's main path end to end and checks every kernel on it:
   6. kernels D1/D2 (B1's stages one by one): the kernel-debug tool
      (fastdet_tpu_torch.tools.debug_ingest) on its three cases, every
      stage equal to its plain version, launch counts zeroed just before
-     and read just after; then at B = 8, NB = 4096 (bt = 128) D1 and D2
-     against their plain versions, D1's nat against B1's output on the
-     same rows, and their timings;
+     and read just after; then at NB = 4096 (bt = 128) D2 against its
+     plain version on the tool's three parameter sets at B = 1, 8 and 16
+     (the sub-tile it picked printed), D1 against its plain version and
+     its nat against B1's output at B = 8; D1's timings at B = 8, D2's at
+     B = 1, 8 and 16, and D2's device time at B = 8 for every sub-tile
+     size;
   7. int8: the server's int8 models (build_services, mode int8,
      calibrated on testdata/scene*.jpg, decoded by runtime.jpeg, whose
      decoder is printed): one batch of the seven fixtures
@@ -594,6 +597,7 @@ def phase_stages(torch):
     from fastdet_tpu_torch.tools import debug_ingest
 
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     st.LAUNCHES.update(D1=0, D2=0)
     with torch.inference_mode():
         cases = debug_ingest.run(dev, prefix="[6] ")
@@ -606,51 +610,102 @@ def phase_stages(torch):
            f"a kernel was not launched on the debug path: {launches}")
     worst = max(c["max_abs_err"] for c in cases)
 
-    # the engine's scale: B = 8 frames of NB = 4096 blocks, bt = 128
-    b, nb = 8, 4096
-    rows = st.build_case(np.random.RandomState(13), b, nb, 0.0, 0.0,
-                         MCAP=8 * nb, NCAPB=10 * nb)
-    plen, ms, _, nib, esc8, esc16, _ = (torch.from_numpy(a).to(dev)
-                                        for a in rows)
-    s = st.prepare_streams(plen, ms, nib, nb)
+    # the engine's scale: NB = 4096 blocks (bt = 128) on the debug tool's
+    # three parameter sets, B = 1, 8 and 16 frames (the first B rows of
+    # one 16-frame build per set)
+    nb = 4096
+    rows16 = {label: st.build_case(
+        np.random.RandomState(13), 16, nb,
+        **dict(kw, MCAP=8 * nb,
+               NCAPB=32 * nb if "min_nnz" in kw else 10 * nb))
+        for label, kw in debug_ingest.CASES.items()}
+
+    def streams(label, b):
+        plen, ms, _, nib, esc8, esc16, _ = (
+            torch.from_numpy(a[:b]).to(dev) for a in rows16[label])
+        return st.prepare_streams(plen, ms, nib, nb), (plen, ms, esc8, esc16)
+
+    d2_worst, subs = 0, {}
+    for label in debug_ingest.CASES:
+        for b in (1, 8, 16):
+            s, _ = streams(label, b)
+            expect(s.bt == 128, f"bt {s.bt} at NB={nb}")
+            args = (s.ms32, s.vals32, s.moffx, s.probe, s.eoff1, s.bt)
+            diff = int((st.nat_gated(*args) - st.nat_gated_plain(*args))
+                       .abs().max().item())
+            d2_worst = max(d2_worst, diff)
+            subs[b] = st.sub_tile(b, nb, s.bt, sms)
+            p, e = s.probe.long(), s.eoff1.long()
+            dense = int(((p[:, 128::128] - p[:, :-1:128]) > 128 * 32).sum())
+            gated = int(((e[:, 128::128] - e[:, :-1:128]) > 0).sum())
+            say(f"[6] D2 {label!r} B={b} NB={nb} bt={s.bt}: sub-tile "
+                f"{subs[b]}, {dense} of {b * nb // 128} tool tiles dense, "
+                f"{gated} gated; max |D2 - plain| = {diff}")
+    expect(d2_worst == 0, f"D2 disagrees with its plain version at NB={nb}:"
+           f" {d2_worst}")
+
+    b = 8
+    s, (plen, ms, esc8, esc16) = streams("tool", b)
     args = (s.ms32, s.vals32, s.moffx, s.probe)
-    expect(s.bt == 128, f"bt {s.bt} at NB={nb}")
     got = st.stages(*args, s.bt)
     d1_diff = max(int((g - w).abs().max().item())
                   for g, w in zip(got, st.stages_plain(*args, s.bt)))
-    d2_diff = int((st.nat_gated(*args, s.eoff1, s.bt)
-                   - st.nat_gated_plain(*args, s.eoff1, s.bt))
-                  .abs().max().item())
     offs = si.stream_offsets(plen, ms, s.vals, esc8, nb, -8)
     b1_diff = int((got.nat - si.reconstruct(offs, ms, s.vals, esc8, esc16,
                                             -8)).abs().max().item())
     say(f"[6] B={b} NB={nb} bt={s.bt}: max |D1 - plain| = {d1_diff}, "
-        f"max |D2 - plain| = {d2_diff}, max |D1 nat - B1| = {b1_diff}")
-    expect(d1_diff == 0 and d2_diff == 0 and b1_diff == 0,
-           f"D1/D2 at B={b}: {d1_diff}, {d2_diff}, vs B1 {b1_diff}")
+        f"max |D1 nat - B1| = {b1_diff}")
+    expect(d1_diff == 0 and b1_diff == 0,
+           f"D1 at B={b}: {d1_diff}, vs B1 {b1_diff}")
 
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    res = {}
-    for key, fn, plain, kernel, out_bytes in (
-        ("D1", lambda: st.stages(*args, s.bt),
-         lambda: st.stages_plain(*args, s.bt), "ingest_stages_kernel",
-         nbytes(got)),
-        ("D2", lambda: st.nat_gated(*args, s.eoff1, s.bt),
-         lambda: st.nat_gated_plain(*args, s.eoff1, s.bt),
-         "nat_gated_kernel", nbytes([got.nat])),
-    ):
-        in_bytes = _stage_read_bytes(torch, s, nb, gated=key == "D2")
-        timing = (_time_ms(torch, fn), _time_ms(torch, plain, iters=5),
-                  (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3)
-        dev_ms = _device_ms(torch, fn, kernel)
-        say(f"[6] {key} B={b}: kernel {timing[0]:.4f} ms, device "
-            f"{dev_ms} ms (profiler), plain {timing[1]:.4f} ms, bound "
-            f"{timing[2]:.4f} ms (bytes: {in_bytes} in, {out_bytes} out)")
-        res[key] = {"max_abs_err": max(worst, d1_diff if key == "D1"
-                                       else d2_diff),
-                    "timing": {8: timing}, "device_ms": dev_ms}
+    in_bytes = _stage_read_bytes(torch, s, nb, gated=False)
+    timing = (_time_ms(torch, lambda: st.stages(*args, s.bt)),
+              _time_ms(torch, lambda: st.stages_plain(*args, s.bt), iters=5),
+              (in_bytes + nbytes(got)) / H100_BYTES_PER_S * 1e3)
+    dev_ms = _device_ms(torch, lambda: st.stages(*args, s.bt),
+                        "ingest_stages_kernel")
+    say(f"[6] D1 B={b}: kernel {timing[0]:.4f} ms, device {dev_ms} ms "
+        f"(profiler), plain {timing[1]:.4f} ms, bound {timing[2]:.4f} ms "
+        f"(bytes: {in_bytes} in, {nbytes(got)} out)")
+    res = {"D1": {"max_abs_err": max(worst, d1_diff), "timing": {8: timing},
+                  "device_ms": dev_ms}}
+
+    timing, dev_ms = {}, {}
+    for b in (1, 8, 16):
+        s, _ = streams("tool", b)
+        args = (s.ms32, s.vals32, s.moffx, s.probe, s.eoff1, s.bt)
+        in_bytes = _stage_read_bytes(torch, s, nb, gated=True)
+        out_bytes = b * nb * 64 * 4
+        timing[b] = (_time_ms(torch, lambda: st.nat_gated(*args)),
+                     _time_ms(torch, lambda: st.nat_gated_plain(*args),
+                              iters=5),
+                     (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3)
+        dev_ms[b] = _device_ms(torch, lambda: st.nat_gated(*args),
+                               "nat_gated_kernel")
+        say(f"[6] D2 B={b}: sub-tile {subs[b]}, kernel {timing[b][0]:.4f} "
+            f"ms, device {dev_ms[b]} ms (profiler), plain "
+            f"{timing[b][1]:.4f} ms, bound {timing[b][2]:.6f} ms (bytes: "
+            f"{in_bytes} in, {out_bytes} out)")
+    # every sub-tile size at B = 8, to hold the picker's choice against
+    s, _ = streams("tool", 8)
+    args = (s.ms32, s.vals32, s.moffx, s.probe, s.eoff1, s.bt)
+    want = st.nat_gated_plain(*args)
+    sweep = {}
+    for sub in st.SUB_TILES:
+        diff = int((st._nat_gated_cuda(*args, sub) - want).abs().max()
+                   .item())
+        d2_worst = max(d2_worst, diff)
+        sweep[sub] = _device_ms(torch, lambda: st._nat_gated_cuda(*args, sub),
+                                "nat_gated_kernel")
+        say(f"[6] D2 B=8 sub-tile {sub}: device {sweep[sub]} ms "
+            f"(profiler), max |D2 - plain| = {diff}")
+    expect(d2_worst == 0, f"D2 disagrees with its plain version: {d2_worst}")
+    res["D2"] = {"max_abs_err": max(worst, d2_worst), "timing": timing,
+                 "device_ms": dev_ms[8], "device_ms_by_b": dev_ms,
+                 "tiles": subs, "sub_tile_device_ms_b8": sweep}
     res["launches"] = launches
     return res
 
@@ -2332,7 +2387,7 @@ def kernels_line(b1, b2, launches, d):
                 out[f"bound_ms_b{b}"] = res["timing"][b][2]
                 out[f"device_ms_b{b}"] = res["device_ms_by_b"][b]
         for key in ("tiles", "moved_bytes", "dense_device_ms_by_b",
-                    "dense_bound_ms_by_b"):
+                    "dense_bound_ms_by_b", "sub_tile_device_ms_b8"):
             if key in res:
                 out[key] = res[key]
         return out

@@ -1,11 +1,20 @@
 // Device steps shared by kernel B1 (sparse_ingest.cu) and the stage
-// kernels D1/D2 (ingest_stages.cu): the window read (from global memory,
-// or from a tile's segment staged in shared memory), the mask assembly,
-// the in-block ranks and the zigzag -> natural placement of one JPEG
-// block, two zigzag positions per lane of a warp (z = lane and
-// z = lane + 32). D1 writes what each step returns and D2 runs the staged
-// reads, so together they check stage by stage the code B1 runs on the
-// card.
+// kernels D1/D2 (ingest_stages.cu).
+//
+// Per block: the window read (from global memory, or from a tile's
+// segment staged in shared memory), the mask assembly, the in-block ranks
+// and the zigzag -> natural placement of one JPEG block, two zigzag
+// positions per lane of a warp (z = lane and z = lane + 32). Per tile:
+// the cp.async staging of an int32 segment with zero fill past the
+// stream's capacity (stage_words), one thread's mask from the staged
+// bytes (staged_mask), a lane's two values from the staged or global
+// window (lane_values) and the 16-byte write-back of the tile's rows
+// (store_rows).
+//
+// B1 and D2 run the same tile phases: stage_words, staged_mask,
+// lane_values and store_rows are B1's phases 2-5 and D2's. D1 writes out
+// what each per-block step returns. So D1 checks B1's steps one by one
+// and D2 checks B1's staged tile structure, on the card.
 #pragma once
 
 #include <cstdint>
@@ -70,7 +79,8 @@ __device__ __forceinline__ int inside_at(const T* seg, int li0, int count,
 
 // The block's 64-bit zigzag mask from its window's 8 bytes, byte k as
 // ``byte_at(k)`` (low 8 bits): the one assembly of the mask, which B1
-// runs per thread on a staged segment and D1/D2 per warp (mask_words).
+// and D2 run per thread on a staged segment (staged_mask) and D1 per warp
+// (mask_words).
 template <typename ByteAt>
 __device__ __forceinline__ void assemble_mask(ByteAt byte_at, unsigned& lo,
                                               unsigned& hi) {
@@ -124,6 +134,83 @@ __device__ __forceinline__ void store_natural(int32_t* __restrict__ orow,
                                               Placement pl, int v0, int v1) {
   orow[pl.p0] = v0;
   orow[pl.p1] = v1;
+}
+
+// 4-byte cp.async into shared memory; src_bytes 0 writes a zero (the
+// read past a stream's capacity).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start the copy of entries [s0, s0 + count) of an int32 stream of ``cap``
+// entries into seg[0, count), zero past the capacity: window_at's values,
+// as staged_at expects. The block's ``nthreads`` threads share the copy;
+// cp_async_wait_all() and a barrier complete it.
+__device__ __forceinline__ void stage_words(int32_t* seg,
+                                            const int32_t* __restrict__ row,
+                                            long cap, int s0, int count,
+                                            int tid, int nthreads) {
+  for (int i = tid; i < count; i += nthreads) {
+    const long gi = (long)s0 + i;
+    const bool in = gi >= 0 && gi < cap;
+    cp_async4(&seg[i], in ? row + gi : row, in ? 4 : 0);
+  }
+}
+
+// The 64-bit zigzag mask (lo, hi) of the block whose mask window starts at
+// ``moff`` and whose successor's starts at ``mend`` (at most 8 bytes),
+// assembled by one thread from the stream's segment [s0, s0 + t2) staged
+// at ``seg`` (staged_at's rule outside it).
+template <typename T>
+__device__ __forceinline__ uint2 staged_mask(const T* seg, int t2,
+                                             const T* __restrict__ row,
+                                             long cap, int s0, int moff,
+                                             int mend) {
+  const int count = min(mend - moff, 8);
+  unsigned lo, hi;
+  assemble_mask(
+      [&](int k) { return staged_at(seg, t2, row, cap, s0, moff, count, k); },
+      lo, hi);
+  return make_uint2(lo, hi);
+}
+
+// This lane's two values (x: zigzag lane, y: lane + 32) from the block's
+// value window [voff, voff + nnz), 0 where the lane's mask bit is clear:
+// entry ``rank`` of the window, read from the segment [s0, s0 + t2) staged
+// at ``seg``. A window wholly in the segment (most blocks) skips the
+// per-entry segment checks; any other reads by staged_at's rule, so an
+// empty segment (t2 = 0) reads every value by window_at.
+__device__ __forceinline__ int2 lane_values(const int32_t* seg, int t2,
+                                            const int32_t* __restrict__ row,
+                                            long cap, int s0, int voff,
+                                            int nnz, LaneBits zb) {
+  int v0 = 0, v1 = 0;
+  if (window_staged(t2, s0, voff, nnz)) {
+    if (zb.bit0) v0 = inside_at(seg, voff - s0, nnz, zb.rank0);
+    if (zb.bit1) v1 = inside_at(seg, voff - s0, nnz, zb.rank1);
+  } else {
+    if (zb.bit0) v0 = staged_at(seg, t2, row, cap, s0, voff, nnz, zb.rank0);
+    if (zb.bit1) v1 = staged_at(seg, t2, row, cap, s0, voff, nnz, zb.rank1);
+  }
+  return make_int2(v0, v1);
+}
+
+// Write a tile's ``n`` 64-entry rows from shared memory (16-byte aligned)
+// to one contiguous, 16-byte aligned span of the output: 16-byte stores.
+__device__ __forceinline__ void store_rows(int32_t* __restrict__ dst,
+                                           const int32_t* src, int n,
+                                           int tid, int nthreads) {
+  int4* d = reinterpret_cast<int4*>(dst);
+  const int4* s = reinterpret_cast<const int4*>(src);
+  for (int i = tid; i < n * 16; i += nthreads) d[i] = s[i];
 }
 
 }  // namespace

@@ -19,20 +19,42 @@
 // bits, their exclusive ranks, the signed nibble at each set bit's rank
 // (acc) and acc in natural order (nat).
 //
-// D2 (fd_ingest_nat_gated), one CTA per tile of bt blocks: nat again with
-// the structure of the TPU kernel's tile loop. When the tile's value span
-// fits bt*32 entries the CTA stages that segment in shared memory and
-// reads every value from there; otherwise each block reads its window
-// from global memory. Both routes read the same window entries, so they
-// give the same nat on any row. A tile whose level-1 escape offsets show
-// escapes gets 100000 added to every output (the tool's escape gate).
+// D2 (fd_ingest_nat_gated): nat again, escape-gated, through the tile
+// structure of the TPU kernel and of B1. The tool's tile of bt blocks
+// (pick_bt) decides two things, read from its boundary offsets: the
+// route (fast when its value span probe[end] - probe[start] fits bt*32
+// entries, else dense) and the gate (GATE = 100000 added to every output
+// of a tile whose level-1 escape offsets eoff1 show escapes). The two
+// routes read the same window entries, so they give the same nat on any
+// row.
 //
 // What bounds them on this card: bytes. D1 writes 360 int32 per block
 // (8 + 64 + 32 + 4 x 64) against a few dozen integer operations per
-// value; D2 reads the streams once and writes 64 int32 per block. The
-// design keeps B1's: one warp per block, two zigzag positions per lane,
-// ranks from popcounts, the 256-byte output row of a block written by
-// one warp.
+// value; D2 reads the streams once and writes 64 int32 per block. D1
+// keeps the first design: one warp per block, two zigzag positions per
+// lane, ranks from popcounts, the 256-byte output row of a block written
+// by one warp.
+//
+// D2 runs B1's tile design (sparse_ingest.cu), on a sub-tile of ST blocks
+// of a tool tile per CTA (ST divides bt; the wrapper picks it from the
+// batch and the card's SM count, ingest_stages.sub_tile), on a
+// (nb / ST, frames) grid:
+//   1. cp.async stages the sub-tile's ST+1 moffx and probe entries and the
+//      tool tile's probe and eoff1 at its two boundaries;
+//   2. the sub-tile's mask entries and its share of the tool tile's value
+//      segment land in shared memory, all in flight at once, zero past
+//      each stream's capacity (fd::stage_words). A dense-route tile
+//      stages no values: it reads them from global memory by window_at;
+//   3. one thread per block assembles the block's mask from the staged
+//      entries (fd::staged_mask);
+//   4. one warp per block ranks, reads and places its values, plus the
+//      gate, into the sub-tile's natural-order rows in shared memory
+//      (fd::lane_bits, fd::lane_values, fd::store_natural);
+//   5. the sub-tile's rows leave as one contiguous span of 16-byte stores
+//      (fd::store_rows).
+// Phases 2-5 are B1's own device functions (ingest_common.cuh). D2's
+// first design (one CTA per tool tile, each warp a chain of dependent
+// global loads per block, 4-byte stores) ran at 21 % of its bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,7 +64,8 @@
 namespace {
 
 constexpr int kWarpsPerCta = 8;
-constexpr int kMaxBt = 128;  // D2's shared segment: kMaxBt * 32 int32
+constexpr int kGate = 100000;     // ingest_stages.GATE
+constexpr int kValsPerBlock = 32;  // D2's staged value share per block
 
 // Sign-extend a nibble (the tool's (v & 15) - ((v & 15) >> 3 << 4)).
 __device__ __forceinline__ int sext4(int v) {
@@ -109,6 +132,7 @@ ingest_stages_kernel(const int32_t* __restrict__ ms,     // (B, ML)
   fd::store_natural(nat + g * 64, fd::placement(lane), a0, a1);
 }
 
+template <int ST>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 nat_gated_kernel(const int32_t* __restrict__ ms,     // (B, ML)
                  const int32_t* __restrict__ vals,   // (B, VL)
@@ -117,52 +141,85 @@ nat_gated_kernel(const int32_t* __restrict__ ms,     // (B, ML)
                  const int32_t* __restrict__ eoff1,  // (B, NB+1)
                  int32_t* __restrict__ out,          // (B, NB, 64)
                  int nb, int bt, int mlen, int vlen) {
-  __shared__ int32_t seg[kMaxBt * 32];
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int base = t * bt;
-  const int t2 = bt * 32;
-  const int32_t* mo = moffx + (long)b * (nb + 1);
-  const int32_t* po = probe + (long)b * (nb + 1);
-  const int32_t* eo = eoff1 + (long)b * (nb + 1);
+  constexpr int kThreads = kWarpsPerCta * 32;
+  __shared__ __align__(16) int32_t s_out[ST * 64];
+  __shared__ int32_t s_val[kValsPerBlock * ST];
+  __shared__ int32_t s_mask[8 * ST];
+  __shared__ int32_t s_mo[ST + 1], s_po[ST + 1];
+  __shared__ int32_t s_tile[4];  // probe, then eoff1, at the tool tile's ends
+  __shared__ uint2 s_words[ST];  // each block's zigzag mask (lo, hi)
+
+  const int tid = threadIdx.x, b = blockIdx.y;
+  const int j0 = blockIdx.x * ST;
+  const int base = j0 / bt * bt;  // the tool tile's first block
+  const long row = (long)b * (nb + 1);
+
+  // 1. the sub-tile's block offsets, the tool tile's boundaries
+  if (tid <= ST) {
+    fd::cp_async4(&s_mo[tid], moffx + row + j0 + tid, 4);
+    fd::cp_async4(&s_po[tid], probe + row + j0 + tid, 4);
+  } else if (tid <= ST + 4) {
+    const int k = tid - ST - 1;
+    fd::cp_async4(&s_tile[k],
+                  (k < 2 ? probe : eoff1) + row + base + (k & 1) * bt, 4);
+  }
+  fd::cp_async_wait_all();
+  __syncthreads();
+
+  // 2. the sub-tile's mask entries and (fast route) values, at most their
+  // share per block; the rest is read by staged_at's rule
+  const bool fast = (long)s_tile[1] - s_tile[0] <= (long)bt * 32;
+  const int gate = s_tile[3] > s_tile[2] ? kGate : 0;
+  const int ms0 = s_mo[0], vs0 = s_po[0];
+  const int t2m = max(0, min(s_mo[ST] - ms0, 8 * ST));
+  const int t2v = fast ? max(0, min(s_po[ST] - vs0, kValsPerBlock * ST)) : 0;
   const int32_t* mrow = ms + (long)b * mlen;
   const int32_t* vrow = vals + (long)b * vlen;
+  fd::stage_words(s_mask, mrow, mlen, ms0, t2m, tid, kThreads);
+  fd::stage_words(s_val, vrow, vlen, vs0, t2v, tid, kThreads);
+  fd::cp_async_wait_all();
+  __syncthreads();
 
-  const int s0 = po[base];
-  const bool fast = po[base + bt] - s0 <= t2;  // uniform over the CTA
-  if (fast) {
-    for (int i = threadIdx.x; i < t2; i += blockDim.x)
-      seg[i] = fd::window_at(vrow, vlen, s0, t2, i);
+  // 3. one thread per block assembles its mask from the staged entries
+  if (tid < ST) {
+    s_words[tid] = fd::staged_mask(s_mask, t2m, mrow, mlen, ms0, s_mo[tid],
+                                   s_mo[tid + 1]);
   }
   __syncthreads();
-  const int gate = eo[base + bt] - eo[base] > 0 ? 100000 : 0;
 
-  const int lane = threadIdx.x & 31;
-  for (int jt = threadIdx.x >> 5; jt < bt; jt += kWarpsPerCta) {
-    const int j = base + jt;
-    const int moff = mo[j];
-    unsigned lo, hi;
-    fd::mask_words((unsigned)fd::window_at(mrow, mlen, moff,
-                                           min(mo[j + 1] - moff, 8), lane),
-                   lo, hi);
-    const fd::LaneBits zb = fd::lane_bits(lo, hi, lane);
-    const int off = po[j], nnz = po[j + 1] - off;
-    int v0 = 0, v1 = 0;
-    if (fast && fd::window_staged(t2, s0, off, nnz)) {
-      if (zb.bit0) v0 = fd::inside_at(seg, off - s0, nnz, zb.rank0);
-      if (zb.bit1) v1 = fd::inside_at(seg, off - s0, nnz, zb.rank1);
-    } else if (fast) {
-      if (zb.bit0)
-        v0 = fd::staged_at(seg, t2, vrow, vlen, s0, off, nnz, zb.rank0);
-      if (zb.bit1)
-        v1 = fd::staged_at(seg, t2, vrow, vlen, s0, off, nnz, zb.rank1);
-    } else {
-      if (zb.bit0) v0 = fd::window_at(vrow, vlen, off, nnz, zb.rank0);
-      if (zb.bit1) v1 = fd::window_at(vrow, vlen, off, nnz, zb.rank1);
-    }
-    fd::store_natural(out + ((long)b * nb + j) * 64, fd::placement(lane),
-                      (zb.bit0 ? sext4(v0) : 0) + gate,
-                      (zb.bit1 ? sext4(v1) : 0) + gate);
+  // 4. one warp per block: ranks, values, gate, placement
+  const int lane = tid & 31;
+  const fd::Placement pl = fd::placement(lane);
+#pragma unroll
+  for (int q = 0; q < ST / kWarpsPerCta; ++q) {
+    const int jt = q * kWarpsPerCta + (tid >> 5);
+    const uint2 mw = s_words[jt];
+    const fd::LaneBits zb = fd::lane_bits(mw.x, mw.y, lane);
+    const int off = s_po[jt];
+    const int2 v = fd::lane_values(s_val, t2v, vrow, vlen, vs0, off,
+                                   s_po[jt + 1] - off, zb);
+    fd::store_natural(s_out + jt * 64, pl, sext4(v.x) + gate,
+                      sext4(v.y) + gate);
   }
+  __syncthreads();
+
+  // 5. the sub-tile's rows: one contiguous span, 16-byte stores
+  fd::store_rows(out + ((long)b * nb + j0) * 64, s_out, ST, tid, kThreads);
+}
+
+template <int ST>
+cudaError_t launch_nat_gated(const void* ms, const void* vals,
+                             const void* moffx, const void* probe,
+                             const void* eoff1, void* out, int nframes,
+                             int nb, int bt, int mlen, int vlen,
+                             cudaStream_t stream) {
+  const dim3 grid((unsigned)(nb / ST), (unsigned)nframes);
+  nat_gated_kernel<ST><<<grid, kWarpsPerCta * 32, 0, stream>>>(
+      static_cast<const int32_t*>(ms), static_cast<const int32_t*>(vals),
+      static_cast<const int32_t*>(moffx), static_cast<const int32_t*>(probe),
+      static_cast<const int32_t*>(eoff1), static_cast<int32_t*>(out), nb, bt,
+      mlen, vlen);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -191,17 +248,26 @@ extern "C" int fd_ingest_stages(const void* ms, const void* vals,
 extern "C" int fd_ingest_nat_gated(const void* ms, const void* vals,
                                    const void* moffx, const void* probe,
                                    const void* eoff1, void* out, int nframes,
-                                   int nb, int bt, int mlen, int vlen,
-                                   void* stream) {
+                                   int nb, int bt, int sub, int mlen,
+                                   int vlen, void* stream) {
   if (nframes <= 0 || nb <= 0) return (int)cudaSuccess;
-  if (bt <= 0 || bt > kMaxBt || nb % bt || nframes > 65535)
+  if (bt <= 0 || nb % bt || sub <= 0 || bt % sub || nframes > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(nb / bt), (unsigned)nframes);
-  nat_gated_kernel<<<grid, kWarpsPerCta * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ms), static_cast<const int32_t*>(vals),
-      static_cast<const int32_t*>(moffx), static_cast<const int32_t*>(probe),
-      static_cast<const int32_t*>(eoff1), static_cast<int32_t*>(out), nb, bt,
-      mlen, vlen);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (sub) {
+    case 8:
+      return (int)launch_nat_gated<8>(ms, vals, moffx, probe, eoff1, out,
+                                      nframes, nb, bt, mlen, vlen, s);
+    case 16:
+      return (int)launch_nat_gated<16>(ms, vals, moffx, probe, eoff1, out,
+                                       nframes, nb, bt, mlen, vlen, s);
+    case 32:
+      return (int)launch_nat_gated<32>(ms, vals, moffx, probe, eoff1, out,
+                                       nframes, nb, bt, mlen, vlen, s);
+    case 64:
+      return (int)launch_nat_gated<64>(ms, vals, moffx, probe, eoff1, out,
+                                       nframes, nb, bt, mlen, vlen, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -34,25 +34,26 @@
 //      values in shared memory (one coalesced round trip);
 //   2. from those, the tile's segments of the four streams land in shared
 //      memory, all in flight at once (a second round trip): mask bytes
-//      [moff[j0], moff[j0+BT]), values [voff[j0], voff[j0+BT]) (cp.async,
-//      zero fill past the capacity) and both escape streams, each up to a
-//      fixed share per block. An entry outside a staged segment (a dense
-//      block, an inconsistent row) is read from global memory by
-//      fd::staged_at's rule, so the two routes differ in where they read,
-//      never in what;
+//      [moff[j0], moff[j0+BT]), values [voff[j0], voff[j0+BT])
+//      (fd::stage_words: cp.async, zero fill past the capacity) and both
+//      escape streams, each up to a fixed share per block. An entry
+//      outside a staged segment (a dense block, an inconsistent row) is
+//      read from global memory by fd::staged_at's rule, so the two routes
+//      differ in where they read, never in what;
 //   3. one thread per block assembles the block's 64-bit mask from the
-//      staged bytes (fd::assemble_mask);
+//      staged bytes (fd::staged_mask);
 //   4. each warp then ranks, reads and places its blocks' values from
-//      shared memory (fd::lane_bits, fd::staged_at, fd::store_natural)
+//      shared memory (fd::lane_bits, fd::lane_values, fd::store_natural)
 //      into the tile's natural-order rows in shared memory. A block whose
-//      value window lies wholly in the staged segment and that has no
-//      escape entries (most blocks) takes a short route: no per-entry
-//      segment checks (fd::window_staged, fd::inside_at), no ballots;
+//      value window lies wholly in the staged segment (most blocks) skips
+//      the per-entry segment checks, and one without escape entries (most
+//      blocks) the ballots;
 //   5. the tile's BT x 256 B of output, one contiguous 256-B aligned span
-//      of out, leaves as 16-byte stores.
-// Every device step is a function of ingest_common.cuh that D1 or D2 also
-// runs and writes out. The wrapper picks BT from the batch and the card's
-// SM count (sparse_ingest.tile) and passes it in.
+//      of out, leaves as 16-byte stores (fd::store_rows).
+// Phases 2-5 call ingest_common.cuh's tile functions, which kernel D2
+// runs too, and every per-block step in them is one that D1 writes out.
+// The wrapper picks BT from the batch and the card's SM count
+// (sparse_ingest.tile) and passes it in.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,19 +73,9 @@ constexpr int kEsc8PerBlock = 8;
 constexpr int kEsc16PerBlock = 2;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+using fd::cp_async4;
+using fd::cp_async_wait_all;
 using fd::kFull;
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 template <int BT>
 __global__ void __launch_bounds__(kThreads)
@@ -135,11 +126,7 @@ sparse_tile_kernel(const int32_t* __restrict__ offs,   // (B, 4, NB+1)
   const int32_t* vrow = vals + (long)b * nv;
   const int8_t* erow = esc8 + (long)b * e8cap;
   const int16_t* frow = esc16 + (long)b * e16cap;
-  for (int i = tid; i < t2v; i += kThreads) {
-    const long gi = (long)vs0 + i;
-    const bool in = gi >= 0 && gi < nv;
-    cp_async4(&s_val[i], in ? vrow + gi : vrow, in ? 4 : 0);
-  }
+  fd::stage_words(s_val, vrow, nv, vs0, t2v, tid, kThreads);
   constexpr int kM = (8 * BT + kThreads - 1) / kThreads;
   constexpr int kE = (kEsc8PerBlock * BT + kThreads - 1) / kThreads;
   constexpr int kF = (kEsc16PerBlock * BT + kThreads - 1) / kThreads;
@@ -167,15 +154,8 @@ sparse_tile_kernel(const int32_t* __restrict__ offs,   // (B, 4, NB+1)
 
   // 3. one thread per block assembles its mask from the staged bytes
   if (tid < n) {
-    const int moff = s_off[0][tid];
-    const int mlen = min(s_off[0][tid + 1] - moff, 8);
-    unsigned lo, hi;
-    fd::assemble_mask(
-        [&](int k) {
-          return fd::staged_at(s_mask, t2m, mrow, mcap, ms0, moff, mlen, k);
-        },
-        lo, hi);
-    s_words[tid] = make_uint2(lo, hi);
+    s_words[tid] = fd::staged_mask(s_mask, t2m, mrow, mcap, ms0,
+                                   s_off[0][tid], s_off[0][tid + 1]);
   }
   __syncthreads();
 
@@ -187,24 +167,18 @@ sparse_tile_kernel(const int32_t* __restrict__ offs,   // (B, 4, NB+1)
     const uint2 mw = s_words[jt];
     const fd::LaneBits zb = fd::lane_bits(mw.x, mw.y, lane);
     const bool bit0 = zb.bit0, bit1 = zb.bit1;
-    const int voff = s_off[1][jt], nnz = s_off[1][jt + 1] - voff;
+    const int voff = s_off[1][jt];
+    const int2 v = fd::lane_values(s_val, t2v, vrow, nv, vs0, voff,
+                                   s_off[1][jt + 1] - voff, zb);
+    int v0 = v.x, v1 = v.y;
     const int e1off = s_off[2][jt];
     const int n1 = min(s_off[2][jt + 1] - e1off, kEW1);
-    int v0, v1;
-    if (n1 <= 0 && fd::window_staged(t2v, vs0, voff, nnz)) {
-      // the common block: its values staged, no escape entries (a
-      // sentinel reads the empty escape window: 0)
-      v0 = bit0 ? fd::inside_at(s_val, voff - vs0, nnz, zb.rank0) : 0;
-      v1 = bit1 ? fd::inside_at(s_val, voff - vs0, nnz, zb.rank1) : 0;
+    if (n1 <= 0) {
+      // the common block: no escape entries (a sentinel reads the empty
+      // escape window: 0)
       if (v0 == sentinel) v0 = 0;
       if (v1 == sentinel) v1 = 0;
     } else {
-      v0 = bit0 ? fd::staged_at(s_val, t2v, vrow, nv, vs0, voff, nnz,
-                                zb.rank0)
-                : 0;
-      v1 = bit1 ? fd::staged_at(s_val, t2v, vrow, nv, vs0, voff, nnz,
-                                zb.rank1)
-                : 0;
       // level 1: value-stream sentinel -> esc8
       const bool f0 = bit0 && v0 == sentinel;
       const bool f1 = bit1 && v1 == sentinel;
@@ -244,9 +218,7 @@ sparse_tile_kernel(const int32_t* __restrict__ offs,   // (B, 4, NB+1)
   __syncthreads();
 
   // 5. the tile's rows: one contiguous span, 16-byte stores
-  int4* dst = reinterpret_cast<int4*>(out + ((long)b * nb + j0) * 64);
-  const int4* src = reinterpret_cast<const int4*>(s_out);
-  for (int i = tid; i < n * 16; i += kThreads) dst[i] = src[i];
+  fd::store_rows(out + ((long)b * nb + j0) * 64, s_out, n, tid, kThreads);
 }
 
 template <int BT>

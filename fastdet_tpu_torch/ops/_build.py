@@ -162,7 +162,8 @@ def _bind_kernels(lib):
     lib.fd_ingest_nat_gated.restype = i
     lib.fd_ingest_nat_gated.argtypes = [
         p, p, p, p, p, p,        # ms, vals, moffx, probe, eoff1, out
-        i, i, i, i, i,           # B, NB, bt, mask length, value length
+        i, i, i, i, i, i,        # B, NB, bt, sub-tile, mask length,
+                                 # value length
         p]                       # stream
     lib.fd_cuda_error_string.restype = ctypes.c_char_p
     lib.fd_cuda_error_string.argtypes = [i]

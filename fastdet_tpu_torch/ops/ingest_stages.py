@@ -25,10 +25,14 @@ frame and JPEG block j (``off = probe[j]``, ``nnz = probe[j+1] - off``):
   set bit, else 0;
 - ``nat`` (NB, 64): ``acc`` in natural order.
 
-D2 gives ``nat`` again, through the TPU kernel's tile structure (a
-staged value segment when the tile's span fits bt*32, per-block windows
-otherwise), with 100000 added to every output of a tile whose level-1
-escape offsets ``eoff1`` show escapes. Every read past a stream is 0.
+D2 gives ``nat`` again, through the tile structure of the TPU kernel
+and of kernel B1, with GATE added to every output of a tool tile (bt
+blocks) whose level-1 escape offsets ``eoff1`` show escapes. A tool tile
+whose value span fits bt*32 entries takes the fast route (values staged
+in shared memory), any other the dense route (values read from global
+memory); both read the same entries. The kernel runs B1's tile phases
+on sub-tiles of a tool tile (:func:`sub_tile`). Every read past a stream
+is 0.
 """
 
 from __future__ import annotations
@@ -46,7 +50,11 @@ from fastdet_tpu_torch.ops import sparse_ingest as si
 
 LANES = 128
 GATE = 100000   # D2's escape-gate offset (the tool's marker value)
-MAX_BT = 128    # D2 stages at most MAX_BT * 32 values per tile
+MAX_BT = 128    # the largest tool tile pick_bt returns
+
+#: D2's sub-tile sizes (blocks per CTA), one instance each in
+#: csrc/ingest_stages.cu
+SUB_TILES = (8, 16, 32, 64)
 
 #: launches of the CUDA kernels (the plain versions do not count)
 LAUNCHES = {"D1": 0, "D2": 0}
@@ -117,6 +125,24 @@ def pick_bt(nb: int) -> int:
         if nb % bt == 0:
             return bt
     return 16
+
+
+def sub_tile(nframes: int, nb: int, bt: int, sms: int) -> int:
+    """Blocks per CTA of kernel D2 for ``nframes`` frames of ``nb`` blocks
+    in tool tiles of ``bt`` on a card of ``sms`` multiprocessors: the
+    largest of :data:`SUB_TILES` that divides ``bt`` and whose grid still
+    gives every SM a CTA, else the smallest that divides ``bt`` (B1's
+    rule, sparse_ingest.tile). At NB = 4096, bt = 128 on 132 SMs that is
+    16 at one frame, 32 at two and 64 from three (so 64 at 8 and at 16).
+    Raises ValueError when no size divides ``bt``."""
+    fits = [s for s in SUB_TILES if bt % s == 0]
+    if not fits:
+        raise ValueError(f"ingest_stages: bt={bt} is not a multiple of "
+                         f"{SUB_TILES[0]} (D2's sub-tiles: {SUB_TILES})")
+    for sub in reversed(fits[1:]):
+        if nb // sub * nframes >= sms:
+            return sub
+    return fits[0]
 
 
 def rows128(stream32: torch.Tensor, extra_rows: int) -> torch.Tensor:
@@ -286,8 +312,9 @@ def nat_gated(ms32: torch.Tensor, vals32: torch.Tensor, moffx: torch.Tensor,
               probe: torch.Tensor, eoff1: torch.Tensor,
               bt: int) -> torch.Tensor:
     """Kernel D2: (B, NB, 64) int32 ``nat`` through the tile structure,
-    escape-gated (module docstring). CPU tensors take
-    :func:`nat_gated_plain`; CUDA tensors launch the kernel or raise."""
+    escape-gated (module docstring), on :func:`sub_tile`'s sub-tiles. CPU
+    tensors take :func:`nat_gated_plain`; CUDA tensors launch the kernel
+    or raise."""
     tensors = (("ms32", ms32), ("vals32", vals32), ("moffx", moffx),
                ("probe", probe), ("eoff1", eoff1))
     if all(t.device.type == "cpu" for _, t in tensors):
@@ -299,9 +326,19 @@ def nat_gated(ms32: torch.Tensor, vals32: torch.Tensor, moffx: torch.Tensor,
         raise ValueError("ingest_stages.nat_gated: moffx, probe and eoff1 "
                          "must all be (B, NB+1)")
     _check_bt(nb, bt)
-    if bt > MAX_BT or b > 65535:
-        raise ValueError(f"ingest_stages.nat_gated: bt={bt} > {MAX_BT} or "
-                         f"B={b} > 65535")
+    if b > 65535:
+        raise ValueError(f"ingest_stages.nat_gated: B={b} > 65535")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _nat_gated_cuda(ms32, vals32, moffx, probe, eoff1, bt,
+                           sub_tile(b, nb, bt, sms))
+
+
+def _nat_gated_cuda(ms32, vals32, moffx, probe, eoff1, bt: int,
+                    sub: int) -> torch.Tensor:
+    """Launch kernel D2 on checked CUDA inputs with sub-tiles of ``sub``
+    blocks (``chip_smoke.py`` times every size through it)."""
+    dev = moffx.device
+    b, nb = moffx.shape[0], moffx.shape[1] - 1
     out = torch.empty((b, nb, 64), dtype=torch.int32, device=dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
@@ -309,7 +346,7 @@ def nat_gated(ms32: torch.Tensor, vals32: torch.Tensor, moffx: torch.Tensor,
         rc = lib.fd_ingest_nat_gated(
             ms32.data_ptr(), vals32.data_ptr(), moffx.data_ptr(),
             probe.data_ptr(), eoff1.data_ptr(), out.data_ptr(), b, nb, bt,
-            ms32.shape[1], vals32.shape[1], stream)
+            sub, ms32.shape[1], vals32.shape[1], stream)
     _build.check("fd_ingest_nat_gated", rc)
     _launched("D2")
     return out

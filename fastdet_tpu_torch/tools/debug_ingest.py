@@ -23,6 +23,9 @@ Cases (B=2 frames of NB=64 blocks, ``RandomState(13)``):
 - ``escapes``: level-1 and level-2 escapes, so D2's escape gate fires;
 - ``dense span``: 40-63 values per block, so every tile's value span
   exceeds bt*32 and D2 reads per-block windows instead of its segment.
+
+:func:`mixed_rows` builds frames whose tool tiles take in turn the
+routes and gates of these cases (:data:`MIXED`), for D2's tests.
 """
 
 from __future__ import annotations
@@ -44,6 +47,48 @@ CASES = {
     "dense span": dict(esc1_p=0.0, esc2_p=0.0, min_nnz=40, max_nnz=63,
                        NCAPB=2048),
 }
+
+#: the tool tiles of mixed_rows' frames, in turn: fast route without and
+#: with escapes, dense route without and with escapes
+MIXED = (
+    dict(esc1_p=0.0, esc2_p=0.0),
+    dict(esc1_p=0.25, esc2_p=0.05),
+    dict(esc1_p=0.0, esc2_p=0.0, min_nnz=40, max_nnz=63),
+    dict(esc1_p=0.25, esc2_p=0.05, min_nnz=40, max_nnz=63),
+)
+
+
+def mixed_rows(rng, B: int, NB: int):
+    """(plen, maskstream, nib) v5 rows of B frames of NB blocks whose tool
+    tiles (st.pick_bt(NB) blocks) are st.build_case tiles of the kinds of
+    :data:`MIXED`, tile t of frame b of kind (b + t) % 4: in one frame
+    and one batch, tiles of both of D2's routes, with and without
+    escapes. Capacities: 8 mask bytes and 64 values per block."""
+    bt = st.pick_bt(NB)
+    if NB % bt or bt % 2:
+        raise ValueError(f"mixed_rows: NB={NB} is not a multiple of an "
+                         f"even tile")
+    plen = np.zeros((B, NB // 2), np.uint8)
+    ms = np.zeros((B, 8 * NB), np.uint8)
+    nib = np.zeros((B, 32 * NB), np.uint8)
+    for b in range(B):
+        masks, vals = [], []
+        for t in range(NB // bt):
+            kw = MIXED[(b + t) % len(MIXED)]
+            p, m, _, n, *_ = st.build_case(rng, 1, bt, MCAP=8 * bt,
+                                           NCAPB=32 * bt, **kw)
+            lens = np.stack([p[0] & 15, p[0] >> 4], -1).reshape(-1)
+            mask = m[0, :int(lens.sum())]
+            nvals = int(np.unpackbits(mask).sum())
+            v = np.stack([n[0] & 15, n[0] >> 4], -1).reshape(-1)[:nvals]
+            plen[b, t * bt // 2:(t + 1) * bt // 2] = p[0]
+            masks.append(mask)
+            vals.append(v)
+        mask, v = np.concatenate(masks), np.concatenate(vals)
+        ms[b, :len(mask)] = mask
+        v = np.concatenate([v, np.zeros(len(v) % 2, np.uint8)])
+        nib[b, :len(v) // 2] = v[0::2] | (v[1::2] << 4)
+    return plen, ms, nib
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor):

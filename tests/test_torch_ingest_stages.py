@@ -241,6 +241,60 @@ def test_d2_plain_gate_is_per_tile():
                                rtol=0, atol=0)
 
 
+def test_d2_plain_mixed_batch():
+    """One batch whose tool tiles take both routes, with and without
+    escapes, inside each frame (debug_ingest.mixed_rows): D2's plain
+    version is the tool's numpy ``nat`` plus GATE on exactly the tiles
+    whose level-1 escape offsets grow."""
+    b, nb = 2, 512
+    plen, ms, nib = debug_ingest.mixed_rows(np.random.RandomState(13), b, nb)
+    s = _streams(plen, ms, nib, nb)
+    bt = s.bt
+    assert bt == 128
+    p, e = s.probe.numpy().astype(np.int64), s.eoff1.numpy()
+    kinds = set()
+    gate = np.zeros((b, nb), np.int64)
+    for i in range(b):
+        for t in range(nb // bt):
+            lo, hi = t * bt, (t + 1) * bt
+            escapes = e[i, hi] > e[i, lo]
+            kinds.add((p[i, hi] - p[i, lo] <= bt * 32, bool(escapes)))
+            gate[i, lo:hi] = st.GATE if escapes else 0
+    assert kinds == {(True, False), (True, True), (False, False),
+                     (False, True)}
+    want = _tool_expectations(b, nb, bt, s.moffx.numpy(), s.off.numpy(),
+                              s.nnz.numpy(), s.ms32.numpy(),
+                              s.vals32.numpy())["nat"] + gate[..., None]
+    launches = dict(st.LAUNCHES)
+    got = st.nat_gated(s.ms32, s.vals32, s.moffx, s.probe, s.eoff1, bt)
+    assert st.LAUNCHES == launches
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_d2_sub_tile_picker():
+    """The sub-tile divides bt, gives every SM a CTA where the batch
+    allows (the largest size that does), and takes the values its
+    docstring states at NB = 4096, bt = 128 on 132 SMs."""
+    for nframes, want in ((1, 16), (2, 32), (3, 64), (8, 64), (16, 64)):
+        assert st.sub_tile(nframes, 4096, 128, 132) == want
+    assert ("16 at one frame, 32 at two and 64 from three (so 64 at 8 "
+            "and at 16)") in " ".join(st.sub_tile.__doc__.split())
+    for sms in (1, 16, 132):
+        for bt in (8, 16, 48, 64, 128, 256):
+            for nb in (bt, 4 * bt, 32 * bt):
+                for nframes in (1, 2, 5, 16, 64):
+                    sub = st.sub_tile(nframes, nb, bt, sms)
+                    fits = [f for f in st.SUB_TILES if bt % f == 0]
+                    assert sub in fits and bt % sub == 0
+                    covering = [f for f in fits
+                                if nb // f * nframes >= sms]
+                    assert sub == (max(covering) if covering
+                                   else min(fits))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        st.sub_tile(1, 96, 12, 132)
+
+
 def test_debug_tool_runs_every_case_on_the_cpu(capsys):
     """The tool's cases and lines, here through the plain versions
     alone (its entry point takes the card)."""

@@ -1,6 +1,7 @@
 """Kernels B1, B2, D1 and D2 on the card against their plain PyTorch
-versions, and the int8 convolution's card route (torch._int_mm) against
-its plain 4-bit split route.
+versions (D2 on every sub-tile size it takes), and the int8
+convolution's card route (torch._int_mm) against its plain 4-bit split
+route.
 
 Marked ``gpu``: they skip without a CUDA card. This file imports no JAX
 (the card machine has none), so on the card it runs on its own:
@@ -259,6 +260,54 @@ def test_d1_d2_kernels_match_plain_versions(label):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     torch.testing.assert_close(
         nat2, st.nat_gated_plain(*args, s.eoff1, s.bt), rtol=0, atol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed_rows(nframes, nb):
+    from fastdet_tpu_torch.tools import debug_ingest
+
+    return debug_ingest.mixed_rows(np.random.RandomState(7), nframes, nb)
+
+
+def _mixed_d2(dev, nframes, nb):
+    """D2's inputs for the mixed rows (debug_ingest.mixed_rows) on ``dev``
+    and the sub-tile the wrapper picks for them."""
+    plen, ms, nib = (torch.from_numpy(a).to(dev)
+                     for a in _mixed_rows(nframes, nb))
+    s = st.prepare_streams(plen, ms, nib, nb)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return ((s.ms32, s.vals32, s.moffx, s.probe, s.eoff1, s.bt),
+            st.sub_tile(nframes, nb, s.bt, sms))
+
+
+def _check_d2(args):
+    launches = st.LAUNCHES["D2"]
+    got = st.nat_gated(*args)
+    assert st.LAUNCHES["D2"] == launches + 1
+    torch.testing.assert_close(got, st.nat_gated_plain(*args),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_d2_kernel_on_mixed_batch():
+    """Tool tiles of both routes, with and without escapes, in each frame
+    of one batch (NB = 512, bt = 128: sub-tiles of 8 on 132 SMs)."""
+    args, _ = _mixed_d2(_card(), 2, 512)
+    _check_d2(args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub", [16, 32, 64])
+def test_d2_sub_tiles_match_plain_version(sub):
+    """At NB = 4096 (bt = 128), each sub-tile the wrapper picks there, on
+    the mixed rows at the smallest batch that makes it pick ``sub``."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nframes = next(b for b in range(1, 4 * sms + 1)
+                   if st.sub_tile(b, 4096, 128, sms) == sub)
+    args, picked = _mixed_d2(dev, nframes, 4096)
+    assert picked == sub
+    _check_d2(args)
 
 
 @pytest.mark.gpu
