@@ -101,9 +101,23 @@ Drives the port's main path end to end and checks every kernel on it:
      to an f32 one-device engine's at bucket 8;
      (c) the DDP step on an NCCL group of every visible card: at world
      size 1, batch 8, sparse loss, bf16 and f32, the state after one step
-     equal to make_train_step's bit for bit; cli.train over every card,
-     its export served; (d) utils/profiling.device_trace of one sparse
-     batch names B1's kernel;
+     equal to make_train_step's bit for bit, through the mesh groups of
+     one card (dp = 1 x tp = 1); cli.train over every card, its export
+     served; (d) utils/profiling.device_trace of one sparse batch names
+     B1's kernel;
+ 14. the checkpoints' trainer and the ('dp', 'tp') step: (a)
+     tools/train_detect.main fine-tunes the checkpoint (full:80, q90
+     scenes, bf16, slot targets, batch 8, 40 steps at lr 1e-5 under the
+     recipe's warmup-cosine schedule and global-norm clip, held-out
+     evaluations at steps 20 and 40); its .npz and .json exist, the .json
+     has the JAX tool's keys, and its export passes [10]'s gate in bf16
+     (at least 0.9 of 48 frames, none on the pixel route, B1 launched);
+     warm ms per step, images/s, the lr at the first and last step and
+     the norms before the clip are printed; (b) two gloo ranks on cuda:0
+     lay a dp = 1 x tp = 2 mesh and take one make_sharded_train_step at
+     full width (batch 8, sparse loss, bf16 and f32); gathered over tp,
+     the state is held against make_train_step's (f32 at the CPU tests'
+     tolerances, bf16 loss rtol 1e-2), and the warm step walls printed;
 
 then prints the card line, the kernels line and, last, the result line.
 It exits nonzero with no result line when no CUDA card is present, when
@@ -118,6 +132,7 @@ import contextlib
 import faulthandler
 import json
 import logging
+import math
 import os
 import subprocess
 import sys
@@ -356,7 +371,8 @@ def _device_ms(torch, fn, kernel, iters=20):
 def _where_time_goes(torch, fn, tag="[4]"):
     """Device time by kernel over one call of ``fn``: prints the top
     entries and the card's busy share of the wall time; returns (busy
-    ms, wall ms) or None when the profiler is unavailable."""
+    ms, wall ms, kernel launches) or None when the profiler is
+    unavailable."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -381,7 +397,7 @@ def _where_time_goes(torch, fn, tag="[4]"):
     for ev in sorted(evs, key=lambda e: -e.device_time_total)[:8]:
         say(f"{tag}   {ev.device_time_total / 1e3:9.3f} ms  x{ev.count:<5d} "
             f"{ev.key[:90]}")
-    return busy_ms, wall_ms
+    return busy_ms, wall_ms, sum(ev.count for ev in evs)
 
 
 def _b1_diff(torch, si, args, dc):
@@ -2270,7 +2286,7 @@ def phase_ddp(torch, fixtures):
 
     from fastdet_tpu_torch.cli import train as train_cli
     from fastdet_tpu_torch.models import weights
-    from fastdet_tpu_torch.parallel import train
+    from fastdet_tpu_torch.parallel import mesh, train
     from fastdet_tpu_torch.runtime.server import build_services
 
     world = torch.cuda.device_count()
@@ -2289,15 +2305,19 @@ def phase_ddp(torch, fixtures):
                 rank=0, world_size=1)
             torch.backends.cudnn.deterministic = True
             try:
+                # the mesh of one card: dp = 1 x tp = 1
+                groups = mesh.process_groups(mesh.make_mesh())
                 for name, cd in (("bf16", torch.bfloat16), ("f32", None)):
                     out = []
-                    xs, ts = train.shard_batch(None, x8, [slots8])
-                    for make in (train.make_train_step,
-                                 train.make_sharded_train_step):
-                        st = train.init_train_state(spec, params, device=dev)
+                    xs, ts = train.shard_batch(groups.dp_group, x8, [slots8])
+                    for kw in ({}, {"groups": groups}):
+                        make = (train.make_sharded_train_step if kw
+                                else train.make_train_step)
+                        st = train.init_train_state(spec, params, device=dev,
+                                                    **kw)
                         t0 = time.perf_counter()
-                        st, m = make(spec, compute_dtype=cd, sparse=True)(
-                            st, xs, *ts)
+                        st, m = make(spec, compute_dtype=cd, sparse=True,
+                                     **kw)(st, xs, *ts)
                         torch.cuda.synchronize()
                         out.append((st, float(m["loss"]),
                                     time.perf_counter() - t0))
@@ -2366,6 +2386,516 @@ def phase_trace(torch, fixtures, services):
             f"times")
         expect("sparse_tile_kernel" in text,
                "[13d] the trace does not name B1's kernel")
+
+
+# --------------------------------------------------------------------------
+# Phase 14: the checkpoints' trainer and the ('dp', 'tp') step
+# --------------------------------------------------------------------------
+
+TOOL_STEPS = 40
+TOOL_BATCH = 8
+TOOL_MOVED_SHARE = 0.5     # of the export's values changed by the fine-tune
+
+
+def _recipe_lr(count: int, steps: int, lr: float) -> float:
+    """The lr of tools/train_detect3.py's recipe at update ``count``
+    (the updates before it), written out from optax's
+    warmup_cosine_decay_schedule(0, lr, warmup, decay, 0.05 lr)."""
+    warmup = min(100, max(1, steps // 10))
+    span = max(steps, warmup + 1) - warmup
+    if count < warmup:
+        return lr * count / warmup
+    c = min(count - warmup, span)
+    return lr * (0.95 * 0.5 * (1 + math.cos(math.pi * c / span)) + 0.05)
+
+
+def _adam_ratio_bound(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """The most |m_hat| / sqrt(v_hat) can be at AdamW's t-th update
+    (Cauchy-Schwarz over the moments' sums of the same gradients): 1 at
+    the first."""
+    r = b1 * b1 / b2
+    return ((1 - b1) / math.sqrt(1 - b2)
+            * math.sqrt(sum(r ** j for j in range(t)))
+            * math.sqrt(1 - b2 ** t) / (1 - b1 ** t))
+
+
+def _moved(before, after, lrs, weight_decay=5e-4):
+    """How far a fine-tune moved the trainable leaves (w, gamma, beta, b)
+    of an unfolded tree: (share of values changed, max |diff|, worst
+    |diff| / bound). The bound per value is what ``lrs`` (the updates'
+    lr, in order) allow AdamW: sum lr_t * _adam_ratio_bound(t), the
+    decoupled decay on the kernels, and the float16 export's rounding
+    (half an ulp, 2^-11 relative, 2^-25 below float16's normal range).
+    BN's running statistics are EMAs, not updates: only counted as
+    changed."""
+    import numpy as np
+
+    step_sum = sum(lr * _adam_ratio_bound(t + 1) for t, lr in enumerate(lrs))
+    lr_sum = sum(lrs)
+    changed = total = 0
+    worst = worst_ratio = 0.0
+    for name, p in before.items():
+        for leaf, old in p.items():
+            pairs = (old.items() if isinstance(old, dict) else [(leaf, old)])
+            for sub, o in pairs:
+                n = (after[name][leaf][sub] if isinstance(old, dict)
+                     else after[name][leaf])
+                o, n = np.asarray(o, np.float64), np.asarray(n, np.float64)
+                d = np.abs(n - o)
+                changed += int((d > 0).sum())
+                total += d.size
+                if sub in ("mean", "var"):
+                    continue
+                decay = weight_decay * lr_sum * (np.abs(o) + step_sum) \
+                    if sub == "w" else 0.0
+                bound = step_sum + decay + 2.0 ** -11 * np.abs(n) + 2.0 ** -25
+                worst = max(worst, float(d.max()))
+                worst_ratio = max(worst_ratio, float((d / bound).max()))
+    return changed / total, worst, worst_ratio, step_sum, lr_sum
+
+
+def _tool_step_profile(torch, spec, params, card):
+    """One warm step of the tool's loop (draw_step, augment, noise,
+    make_train_step under the recipe) at batch TOOL_BATCH on the cached
+    training scenes, traced with the clip and without it: busy share
+    and launches of each; returns {clip: (busy, wall, launches)}."""
+    import numpy as np
+
+    from fastdet_tpu_torch.models import yolov3
+    from fastdet_tpu_torch.parallel import train
+    from fastdet_tpu_torch.tools import train_detect
+
+    dev = torch.device("cuda", 0)
+    imgs, boxes, labels = train_detect.load_or_make(
+        "train", range(TRAIN_SEEDS, TRAIN_SEEDS + 64), num_classes=80,
+        jpeg_q=90)
+    data = torch.from_numpy(imgs).to(dev)
+    slots = (torch.from_numpy(train.build_sparse_targets(
+        spec, boxes, labels)).to(dev),)
+    grids = yolov3.head_grid_sizes(spec)
+    sched = train.warmup_cosine_decay_schedule(
+        0.0, 1e-5, 4, TOOL_STEPS, end_value=5e-7)
+    out = {}
+    for clip in (10.0, None):
+        rng = np.random.RandomState(7)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        st = train.init_train_state(spec, params, lr=sched, clip_norm=clip,
+                                    device=dev)
+        step = train.make_train_step(spec, compute_dtype=torch.bfloat16,
+                                     sparse=True)
+
+        def one():
+            idx, flip, cs, co = (torch.from_numpy(a).to(dev) for a in
+                                 train_detect.draw_step(
+                                     rng, len(imgs), TOOL_BATCH, 80))
+            noise = torch.randn((TOOL_BATCH,) + tuple(data.shape[1:]),
+                                generator=gen, device=dev)
+            x, picked = train_detect.augment(data, slots, idx.long(),
+                                             flip.long(), cs, co, noise,
+                                             grids, True)
+            step(st, x, *picked)
+
+        for _ in range(3):
+            one()
+        out[clip] = _where_time_goes(
+            torch, one, tag=f"[14a] tool step ({'clip 10' if clip else 'no clip'})")
+        del st, step
+    if out[10.0] and out[None]:
+        say(f"[14a] the clip's share of a tool step: "
+            f"{out[10.0][2] - out[None][2]} launches, device busy "
+            f"{out[10.0][0] - out[None][0]:.3f} ms; {card}")
+    return out
+
+
+def phase_train_detect(torch, gate, gate_ok, card):
+    """[14a] tools/train_detect.main in this process on the card: a
+    fine-tune of the checkpoint (full, 80 classes, q90 scenes, bf16, slot
+    targets, batch 8, 40 steps at lr 1e-5 under the recipe's schedule and
+    clip, 64 training and 32 held-out scenes, an evaluation every 20
+    steps, no early stop), its scenes cached and its outputs written in a
+    temporary directory. Its .npz and .json exist, the .json has the JAX
+    tool's keys (weights/detect80_full.json's); the lr of its first and
+    last update are the recipe's (written out here); the export moved
+    from the checkpoint (at least TOOL_MOVED_SHARE of the values) and no
+    trainable value further than AdamW under that schedule allows
+    (:func:`_moved`); the export passes [10]'s gate over loopback in
+    bf16: at least 0.9 of the 48 frames, none on the pixel route, B1
+    launched. Prints the warm steps' ms and images/s, the norms before
+    the clip, the held-out scores of the export and of the untouched
+    checkpoint on the same scenes, and one traced tool step with and
+    without the clip."""
+    import shutil
+    import tempfile
+
+    from fastdet_tpu_torch.models import weights
+    from fastdet_tpu_torch.tools import train_detect
+
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="fastdet-tool-")
+    tempdir, tempfile.tempdir = tempfile.tempdir, tmp   # the scene cache
+    try:
+        out = os.path.join(tmp, "tuned.npz")
+        argv = ["train_detect", "--arch", "full", "--classes", "80",
+                "--jpeg-q", "90", "--dtype", "bf16", "--batch",
+                str(TOOL_BATCH), "--steps", str(TOOL_STEPS), "--lr", "1e-5",
+                "--n-train", "64", "--n-val", "32", "--eval-every", "20",
+                "--eval-chunk", "16", "--target-strict", "2",   # no early stop
+                "--init-from", WEIGHTS, "--out", out]
+        t0 = time.perf_counter()
+        rep = train_detect.main(argv)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(REPO, "weights", "detect80_full.json")) as fp:
+            keys = set(json.load(fp))
+        side = os.path.splitext(out)[0] + ".json"
+        expect(os.path.exists(out) and os.path.exists(side),
+               "[14a] the tool wrote no .npz or .json")
+        with open(side) as fp:
+            meta = json.load(fp)
+        expect(set(meta) == keys,
+               f"[14a] sidecar keys {sorted(meta)} != {sorted(keys)}")
+        ms = rep["warm_ms_per_step"]
+        say(f"[14a] train_detect full:80 from the checkpoint, bf16, batch "
+            f"{TOOL_BATCH}, {meta['steps_run']} steps at lr 1e-5: "
+            f"{wall:.1f} s in all; warm steps {ms!r} ms each "
+            f"({rep['warm_steps']} steps after the first), "
+            f"{TOOL_BATCH / (ms / 1e3)!r} images/s; lr first "
+            f"{rep['lr_first']!r}, last {rep['lr_last']!r}; global norm "
+            f"before the clip (10) first {rep['grad_norm_first']!r}, last "
+            f"{rep['grad_norm_last']!r}, max {rep['grad_norm_max']!r}; "
+            f"{card}")
+        want_last = _recipe_lr(meta["steps_run"] - 1, TOOL_STEPS, 1e-5)
+        expect(rep["lr_first"] == 0.0
+               and abs(rep["lr_last"] - want_last) <= 1e-12 * want_last,
+               f"[14a] lr first {rep['lr_first']!r}, last "
+               f"{rep['lr_last']!r}; the recipe's 0.0, {want_last!r}")
+        for h in meta["history"]:
+            say(f"[14a] held-out (seeds 220000-220031) at step {h['step']}: "
+                f"localize {h['localize']!r} strict {h['strict']!r} "
+                f"false positives per frame {h['fp_per_frame']!r}")
+        # the export is the first evaluation with the best (strict, loc)
+        saved = next(h["step"] for h in meta["history"]
+                     if (h["strict"], h["localize"])
+                     == (meta["best_strict"], meta["best_localize"]))
+        spec, before = weights.load_model(WEIGHTS)
+        _, after = weights.load_model(out)
+        lrs = [_recipe_lr(c, TOOL_STEPS, 1e-5) for c in range(saved)]
+        share, worst, ratio, step_sum, lr_sum = _moved(before, after, lrs)
+        say(f"[14a] the export (step {saved}) against the checkpoint: "
+            f"{share:.4f} of the values changed (bar {TOOL_MOVED_SHARE}); "
+            f"trainable values max |diff| {worst:.4e} = "
+            f"{worst / lr_sum:.3f} x the sum of the updates' lr "
+            f"{lr_sum:.4e}; worst |diff| / AdamW's bound {ratio:.4f} "
+            f"(bar 1; bound's lr term {step_sum:.4e})")
+        expect(share >= TOOL_MOVED_SHARE,
+               f"[14a] the export moved {share:.4f} of the values")
+        expect(ratio <= 1.0, f"[14a] the export moved {ratio:.4f} x "
+                             f"further than AdamW under the schedule can")
+        va_imgs, va_boxes, va_labels = train_detect.load_or_make(
+            "val", range(220000, 220032), num_classes=80, jpeg_q=90)
+        val = torch.from_numpy(va_imgs).to(dev)
+        loc, strict, fp = train_detect.held_out(spec, before, val, va_boxes,
+                                                va_labels, 16)
+        say(f"[14a] held-out (the same 32 scenes), the untouched "
+            f"checkpoint: localize {loc!r} strict {strict!r} false "
+            f"positives per frame {fp!r}; the export (step {saved}): "
+            f"localize {meta['best_localize']!r} strict "
+            f"{meta['best_strict']!r}")
+        del val
+        _tool_step_profile(torch, spec, before, card)
+        r = _gate_run(torch, out, "bf16", gate, tag="[14a]")
+        say(f"[14a] gate on the tool's export: {sum(r['ok'])}/"
+            f"{len(r['ok'])} frames ok, the untouched checkpoint "
+            f"{gate_ok['bf16']}/{len(r['ok'])} in [10]")
+        expect(r["ingest"]["pixels"] == 0,
+               f"[14a] frames took the pixel route: {r['ingest']}")
+        expect(r["launches"]["B1"] > 0, "[14a] B1 was not launched")
+        expect(sum(r["ok"]) >= GATE_RATE * len(r["ok"]),
+               f"[14a] only {sum(r['ok'])}/{len(r['ok'])} held-out frames "
+               f"fully localized after the fine-tune")
+    finally:
+        tempfile.tempdir = tempdir
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+TP_JOIN_S = 300
+TP_CONTROL = "bf16, BN over the world"
+# bf16 tp step against the one-device bf16 step, each a relative L2 error
+# (_bf16_spread). On an H100 the tp step measured loss 1.8e-3, m 2.1e-2,
+# v 2.0e-2, update 0.16, bn 4.0e-3, and the one-device step on its rows
+# reversed 2.9e-3, 2.9e-2, 4.8e-2, 0.19, 4.5e-3 (bf16's order of sums
+# alone); the control (BN over every rank) 10, 4.9, 34, 1.4, 33. Each
+# limit is 2-5x the larger spread and under a third of the control's.
+TP_BF16_LIMITS = {"loss": 1e-2, "m": 0.1, "v": 0.2, "update": 0.4,
+                  "bn": 2e-2}
+
+
+def _tp_dump(state, metrics):
+    """{loss, params (the full tree), moments {name: (m, v)}} of a state,
+    gathered over its tp group (collective)."""
+    named = {id(p): n for n, p in state.net.named_parameters()}
+    moments = {}
+    for p, st in state.optimizer.state.items():
+        name = named[id(p)]
+        moments[name] = tuple(
+            state.net.full(name.split(".")[1], st[k]).cpu().numpy().copy()
+            for k in ("exp_avg", "exp_avg_sq"))
+    return {"loss": float(metrics["loss"]), "params": state.net.to_params(),
+            "moments": moments}
+
+
+def _tp_rank(rank, store, inputs, out, weights_path, device):
+    """[14b] one of two gloo ranks on ``device`` (cuda:0), a dp = 1 x
+    tp = 2 mesh: one sharded step from ``weights_path`` in bf16 and in
+    f32 (dumped, gathered over tp), then three more timed; rank 0 writes
+    the dumps."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from fastdet_tpu_torch.models import weights
+    from fastdet_tpu_torch.parallel import mesh, train
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        torch.backends.cudnn.deterministic = True
+        groups = mesh.process_groups(mesh.make_mesh([dev, dev], dp=1, tp=2))
+        spec, params = weights.load_model(weights_path)
+        blob = torch.load(inputs, weights_only=True)
+        xs, ts = train.shard_batch(groups.dp_group, blob["x"].to(dev),
+                                   [blob["slots"].to(dev)])
+        res = {}
+        for name, cd in (("bf16", torch.bfloat16), ("f32", None),
+                         (TP_CONTROL, torch.bfloat16)):
+            st = train.init_train_state(spec, params, device=dev,
+                                        groups=groups)
+            if name == TP_CONTROL:   # the fault the dp group avoids
+                st.net.bn_group = None
+            step = train.make_sharded_train_step(
+                spec, compute_dtype=cd, sparse=True, groups=groups)
+            t0 = time.perf_counter()
+            st, m = step(st, xs, *ts)
+            sync()
+            first = time.perf_counter() - t0
+            dump = _tp_dump(st, m)
+            dump["shards"] = sorted(st.net.tp.convs)
+            dump["first_s"] = first
+            if name != TP_CONTROL:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    st, m = step(st, xs, *ts)
+                sync()
+                dump["ms"] = (time.perf_counter() - t0) / 3 * 1e3
+            res[name] = dump
+            del st, step
+        if rank == 0:
+            with open(out, "wb") as fp:
+                pickle.dump(res, fp)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(torch, card):
+    """[14b] the ('dp', 'tp') step at full width on the card: two gloo
+    ranks on cuda:0 lay a dp = 1 x tp = 2 mesh (gloo runs the tp
+    collectives, all-reduces, on CUDA tensors) and take one
+    make_sharded_train_step from the checkpoint at batch 8, sparse loss,
+    in bf16 and f32; the state after it, gathered over tp, is held
+    against make_train_step's on this card (cuDNN deterministic on both
+    sides). f32 at the CPU tests' tolerances (tests/test_torch_train_tp.
+    py): loss rtol 1e-5, parameters within 1e-6 where |g| is at least
+    1e-3 of its tensor's max and within 2·lr + 1e-6 everywhere, BN
+    running statistics rtol 1e-5 (atol 1e-7), Adam moments within 1e-4 /
+    2e-4 of their max. bf16 within TP_BF16_LIMITS (:func:`_bf16_spread`:
+    loss, both moments, the update and the BN statistics' EMA step),
+    printed beside the spread of the one-device bf16 step on the same
+    rows in reverse order (what bf16's order of sums alone gives), and a
+    control, the tp step with BN over the world, must exceed a limit.
+    The walls of a warm step are printed beside the one-device step's."""
+    import multiprocessing
+    import pickle
+    import shutil
+    import tempfile
+
+    from fastdet_tpu_torch.models import weights
+    from fastdet_tpu_torch.parallel import train
+
+    dev = torch.device("cuda", 0)
+    spec, params = weights.load_model(WEIGHTS)
+    tmp = tempfile.mkdtemp(prefix="fastdet-tp-")
+    try:
+        x8, boxes8, labels8 = _train_scenes(
+            torch, range(TRAIN_SEEDS + 2, TRAIN_SEEDS + 10),
+            torch.device("cpu"))
+        slots8 = torch.from_numpy(train.build_sparse_targets(
+            spec, boxes8, labels8))
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save({"x": x8, "slots": slots8}, inputs)
+        out = os.path.join(tmp, "tp.pkl")
+        ctx = multiprocessing.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_tp_rank, args=(
+            k, os.path.join(tmp, "store"), inputs, out, WEIGHTS, str(dev)))
+            for k in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(TP_JOIN_S)
+                expect(not p.is_alive() and p.exitcode == 0,
+                       f"[14b] tp rank {p.name}: exit code {p.exitcode}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        ranks_s = time.perf_counter() - t0
+        with open(out, "rb") as fp:
+            got = pickle.load(fp)
+        torch.backends.cudnn.deterministic = True
+        rev = torch.arange(7, -1, -1)
+        try:
+            for name, cd in (("bf16", torch.bfloat16), ("f32", None)):
+                st = train.init_train_state(spec, params, device=dev)
+                step = train.make_train_step(spec, compute_dtype=cd,
+                                             sparse=True)
+                xd, sd = x8.to(dev), slots8.to(dev)
+                st, m = step(st, xd, sd)
+                want = _tp_dump(st, m)
+                grads = {n: p.grad.detach().cpu().numpy()
+                         for n, p in st.net.named_parameters()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    st, m = step(st, xd, sd)
+                torch.cuda.synchronize()
+                one_ms = (time.perf_counter() - t0) / 3 * 1e3
+                del st
+                g = got[name]
+                if name == "f32":
+                    rep = _tp_compare(g, want, grads)
+                    text = rep["text"]
+                else:
+                    # the null spread: the same rows in reverse order
+                    st = train.init_train_state(spec, params, device=dev)
+                    st, m = step(st, xd[rev.to(dev)], sd[rev.to(dev)])
+                    null = _bf16_spread(_tp_dump(st, m), want, params)
+                    del st
+                    spread = _bf16_spread(g, want, params)
+                    fault = _bf16_spread(got[TP_CONTROL], want, params)
+                    text = (f"relative L2 errors (limits {TP_BF16_LIMITS}): "
+                            f"tp {_fmt(spread)}; the rows reversed on one "
+                            f"device {_fmt(null)}; {TP_CONTROL} "
+                            f"{_fmt(fault)}")
+                del step
+                say(f"[14b] {name} dp=1 x tp=2 (two gloo ranks on cuda:0, "
+                    f"{len(g['shards'])} convs sharded) vs make_train_step, "
+                    f"batch 8 sparse: loss {g['loss']!r} vs "
+                    f"{want['loss']!r}; {text}; warm step "
+                    f"{g['ms']!r} ms (tp) vs {one_ms!r} ms (one device), "
+                    f"first tp step {g['first_s']:.2f} s; {card}")
+                if name == "f32":
+                    expect(abs(g["loss"] - want["loss"])
+                           <= 1e-5 * abs(want["loss"]), "[14b] f32 loss")
+                    expect(rep["ok"], f"[14b] f32 state: {rep['text']}")
+                else:
+                    over = [k for k, v in spread.items()
+                            if v > TP_BF16_LIMITS[k]]
+                    expect(not over, f"[14b] bf16 state beyond the limits "
+                                     f"in {over}: {_fmt(spread)}")
+                    expect(any(v > TP_BF16_LIMITS[k]
+                               for k, v in fault.items()),
+                           f"[14b] the control passes the bf16 limits: "
+                           f"{_fmt(fault)}")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        say(f"[14b] form: tp = 2 on two gloo ranks sharing cuda:0 (ranks "
+            f"{ranks_s:.1f} s with start-up)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fmt(spread) -> str:
+    return "{" + ", ".join(f"{k} {v:.3e}" for k, v in spread.items()) + "}"
+
+
+def _bf16_spread(got, want, before):
+    """Relative L2 errors of a step's dump ``got`` against ``want`` (both
+    from the tree ``before``), each over the whole net: "loss"; "m" and
+    "v", Adam's moments (the gradient and its square); "update", the
+    parameters' step p - p0 (at AdamW's first update -lr·sign(g), so a
+    flipped sign costs 2·lr); "bn", the BN running statistics' step (the
+    EMA's share of the batch statistics), the worse of mean and var."""
+    import numpy as np
+
+    def rel(pairs):
+        num = sum(float(np.sum((np.float64(a) - b) ** 2)) for a, b in pairs)
+        den = sum(float(np.sum(np.float64(b) ** 2)) for _, b in pairs)
+        return math.sqrt(num / den)
+
+    out = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"])}
+    for i, k in enumerate(("m", "v")):
+        out[k] = rel([(got["moments"][n][i], w[i])
+                      for n, w in want["moments"].items()])
+    upd, bn = [], {"mean": [], "var": []}
+    for name, p in want["params"].items():
+        g, b = got["params"][name], before[name]
+        for leaf, w in p.items():
+            if leaf == "bn":
+                for sub, wv in w.items():
+                    o = np.float64(b["bn"][sub])
+                    pair = (g["bn"][sub] - o, wv - o)
+                    (bn[sub] if sub in bn else upd).append(pair)
+            else:
+                o = np.float64(b[leaf])
+                upd.append((g[leaf] - o, w - o))
+    out["update"] = rel(upd)
+    out["bn"] = max(rel(bn["mean"]), rel(bn["var"]))
+    return out
+
+
+def _tp_compare(got, want, grads, lr=1e-3):
+    """The tests' step tolerances over two dumps: {"ok", "text"}."""
+    import numpy as np
+
+    worst_clear = worst_all = bn = mom = 0.0
+    for name, p in want["params"].items():
+        for leaf, w in list(p.items()):
+            subs = w.items() if isinstance(w, dict) else [(leaf, w)]
+            for sub, wv in subs:
+                gv = (got["params"][name]["bn"][sub] if isinstance(w, dict)
+                      else got["params"][name][leaf])
+                d = np.abs(gv - wv)
+                if sub in ("mean", "var"):
+                    bn = max(bn, float((d / (1e-7 + 1e-5 * np.abs(wv)))
+                                       .max()))
+                    continue
+                g = grads[f"convs.{name}.{sub}"]
+                g = g.transpose(2, 3, 1, 0) if sub == "w" else g
+                clear = np.abs(g) >= 1e-3 * np.abs(g).max()
+                worst_clear = max(worst_clear, float(d[clear].max()))
+                worst_all = max(worst_all, float(d.max()))
+    for k, (m, v) in want["moments"].items():
+        gm, gv = got["moments"][k]
+        mom = max(mom, float(np.abs(gm - m).max() / np.abs(m).max()) / 1e-4,
+                  float(np.abs(gv - v).max() / np.abs(v).max()) / 2e-4)
+    ok = (worst_clear <= 1e-6 and worst_all <= 2 * lr + 1e-6 and bn <= 1.0
+          and mom <= 1.0)
+    return {"ok": ok, "text": (
+        f"parameters max |diff| where |g| is clear {worst_clear:.3e} (bar "
+        f"1e-6), anywhere {worst_all:.3e} (bar {2 * lr + 1e-6:.6f}); BN "
+        f"stats err / (1e-7 + 1e-5 |x|) {bn:.3f} (bar 1); moments err / "
+        f"bar {mom:.3f} (bar 1)")}
 
 
 def kernels_line(b1, b2, launches, d):
@@ -2462,6 +2992,8 @@ def main(argv) -> int:
         phase_sharded(torch, fixtures, services)
         phase_ddp(torch, fixtures)
         phase_trace(torch, fixtures, services)
+        phase_train_detect(torch, gate, gate_ok, card)
+        phase_tp(torch, card)
     finally:
         for svc in services.values():
             svc.engine.close()

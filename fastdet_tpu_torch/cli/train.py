@@ -13,17 +13,20 @@ Usage:
         [--ckpt file] [--ckpt-every N] [--resume] [--synthetic | data_dir]
 
 Training runs in float32 over every visible card, as the JAX CLI's
-mesh spans every device: launched plainly on a machine with more than
-one card it starts one process per card (NCCL, rank = card) and runs the
-data-parallel step (parallel/train.make_sharded_train_step); under
-``torchrun`` it joins the process group it is given; with one card it
-runs the one-device step, with no process group. ``--batch`` is the
-global batch and must divide by the number of ranks: every rank draws
-the same global batch and trains on its own rows, so the trajectory is
-the JAX CLI's whatever the card count. Rank 0 alone logs, saves
-``--ckpt`` and exports; every rank restores. ``main(argv, device=...,
-world_size=...)`` takes another device and rank count (the tests pass
-``"cpu"``: gloo ranks on the CPU).
+mesh spans every device, in its default layout (parallel/mesh.make_mesh:
+tp = 2 on an even card count above 1, dp the rest): launched plainly on
+a machine with more than one card it starts one process per card (NCCL,
+rank = card) and runs the sharded step
+(parallel/train.make_sharded_train_step) over that ('dp', 'tp') mesh;
+under ``torchrun`` it joins the process group it is given and lays the
+mesh over its ranks; with one card it runs the one-device step, with no
+process group. ``--batch`` is the global batch and must divide by the
+dp degree: every rank draws the same global batch and trains on its dp
+index's rows, so the trajectory is the JAX CLI's whatever the card
+count. Rank 0 alone logs and writes ``--ckpt`` and the export (every
+rank takes part in gathering tp shards); every rank restores.
+``main(argv, device=..., world_size=...)`` takes another device and rank
+count (the tests pass ``"cpu"``: gloo ranks on the CPU).
 
 Difference from the JAX CLI: ``--ckpt`` names one checkpoint file
 (parallel/checkpoint.save), where the JAX CLI writes an orbax directory.
@@ -148,14 +151,15 @@ def main(argv, device="cuda", world_size=None):
             return _train(args, dev)
         finally:
             dist.destroy_process_group()
-    if world_size is None:   # a ('dp',) mesh over every visible card
-        world_size = (mesh_lib.make_mesh().dp
+    if world_size is None:   # a ('dp', 'tp') mesh over every visible card
+        world_size = (len(mesh_lib.make_devices())
                       if dev.type == "cuda" and dev.index is None else 1)
     if world_size <= 1:
         return _train(args, dev)
-    if args.batch % world_size:
+    mesh = mesh_lib.make_mesh([dev] * world_size)
+    if args.batch % mesh.dp:
         raise SystemExit(f"--batch {args.batch} does not split over "
-                         f"{world_size} ranks")
+                         f"{mesh.dp} dp ranks")
     import tempfile
 
     import torch.multiprocessing as mp
@@ -191,25 +195,31 @@ def _rank(rank, argv, device_type, world_size, store):
 
 
 def _train(args, dev) -> int:
-    """The training loop on ``dev``: the data-parallel step on this
-    rank's rows when a process group is active, else the one-device
-    step."""
+    """The training loop on ``dev``: the sharded step over the default
+    ('dp', 'tp') mesh of the process group's ranks when a group is
+    active, else the one-device step."""
     import torch
     import torch.distributed as dist
 
     from fastdet_tpu_torch.models import weights as weights_io
     from fastdet_tpu_torch.models import yolov3
     from fastdet_tpu_torch.parallel import checkpoint as ckpt_lib
+    from fastdet_tpu_torch.parallel import mesh as mesh_lib
     from fastdet_tpu_torch.parallel import train as train_lib
 
     sharded = dist.is_available() and dist.is_initialized()
     rank = dist.get_rank() if sharded else 0
     world = dist.get_world_size() if sharded else 1
+    groups = None
+    if sharded:
+        groups = mesh_lib.process_groups(
+            mesh_lib.make_mesh([dev] * world))
+    shape = groups.mesh.shape if groups else {"dp": 1, "tp": 1}
     if rank:
         logger.setLevel(logging.WARNING)
-    if args.batch % world:
+    if args.batch % shape["dp"]:
         raise SystemExit(f"--batch {args.batch} does not split over "
-                         f"{world} ranks")
+                         f"{shape['dp']} dp ranks")
     spec = yolov3.get_spec(args.arch, args.classes)
     if args.image_size != 416:
         spec = yolov3.ModelSpec(spec.name, spec.num_classes, spec.layers,
@@ -220,12 +230,13 @@ def _train(args, dev) -> int:
     else:
         params = weights_io.synthetic_params(spec)
 
-    logger.info("mesh: {'dp': %d}; rank 0 on %s", world,
+    logger.info("mesh: %s; rank 0 on %s", shape,
                 torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else dev)
-    state = train_lib.init_train_state(spec, params, lr=args.lr, device=dev)
-    step_fn = (train_lib.make_sharded_train_step(spec) if sharded
-               else train_lib.make_train_step(spec))
+    state = train_lib.init_train_state(spec, params, lr=args.lr, device=dev,
+                                       groups=groups)
+    step_fn = (train_lib.make_sharded_train_step(spec, groups=groups)
+               if sharded else train_lib.make_train_step(spec))
     if args.resume and args.ckpt and os.path.exists(args.ckpt):
         state = ckpt_lib.restore(args.ckpt, state)
         logger.info("resumed at step %d", state.step)
@@ -243,7 +254,8 @@ def _train(args, dev) -> int:
                                                spec.image_size)
         targets = train_lib.build_targets(spec, boxes, labels)
         if sharded:
-            images, targets = train_lib.shard_batch(None, images, targets)
+            images, targets = train_lib.shard_batch(groups.dp_group, images,
+                                                    targets)
         state, metrics = step_fn(
             state, torch.from_numpy(images).to(dev),
             *[torch.from_numpy(t).to(dev) for t in targets])
@@ -257,14 +269,13 @@ def _train(args, dev) -> int:
             logger.info("step %d loss=%.3f coord=%.3f obj=%.3f cls=%.3f "
                         "(%.1f img/s)", step + 1, m["loss"], m["coord"],
                         m["obj"], m["cls"], rate)
-        if args.ckpt and (step + 1) % args.ckpt_every == 0 and rank == 0:
-            ckpt_lib.save(args.ckpt, state)
+        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+            ckpt_lib.save(args.ckpt, state)   # rank 0 writes
             logger.info("checkpoint saved at step %d", step + 1)
 
-    if rank == 0:
-        ckpt_lib.export_inference(args.out, spec, state)
-        logger.info("wrote %s (servable: name:%d:%s)", args.out,
-                    args.classes, args.out)
+    ckpt_lib.export_inference(args.out, spec, state)   # rank 0 writes
+    logger.info("wrote %s (servable: name:%d:%s)", args.out, args.classes,
+                args.out)
     return 0
 
 

@@ -20,11 +20,18 @@ cuDNN prefers); the model's public functions stay NHWC
   mean and the *biased* variance computed in float32, and LeakyReLU is
   ``where(x >= 0, ...)``, whose gradient at exactly 0 is 1 (that of
   ``F.leaky_relu`` is 0.1 there).
+- Under a ('dp', 'tp') mesh (parallel/mesh.py) batch norm reduces its
+  statistics over the dp group, and a channel-sharded conv
+  (:func:`conv_bn_block_train` with ``tp``) runs on its shard of the
+  output channels between two collectives of the tp group: the input's
+  gradient is summed over the group, the output gathered. The gather is
+  an all-reduce of a zero-filled full buffer (x + 0 = x, exact), which
+  gloo runs on CUDA tensors too, where it has no all-gather.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -65,7 +72,7 @@ def conv2d_train(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
 
 def batch_norm_train_stats(x: torch.Tensor, gamma: torch.Tensor,
-                           beta: torch.Tensor):
+                           beta: torch.Tensor, group=None):
     """Training BN over (N, H, W) of an NCHW tensor; returns (y, batch
     mean, batch var) so the train step can EMA the running statistics.
 
@@ -78,11 +85,13 @@ def batch_norm_train_stats(x: torch.Tensor, gamma: torch.Tensor,
 
     Under a process group of more than one rank (the data-parallel step,
     parallel/train.make_sharded_train_step) the statistics are the
-    global batch's, as the JAX step's under GSPMD: :func:`_global_var_mean`.
+    global batch's, as the JAX step's under GSPMD: :func:`_global_var_mean`
+    over ``group``, the ranks that hold other rows of the same channels
+    (None: the default group).
     """
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-    if _world_size() > 1:
-        var, mean = _global_var_mean(x32)
+    if _world_size(group) > 1:
+        var, mean = _global_var_mean(x32, group)
     else:
         var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
     inv = torch.rsqrt(var + BN_EPS)
@@ -91,57 +100,133 @@ def batch_norm_train_stats(x: torch.Tensor, gamma: torch.Tensor,
     return y.to(x.dtype), mean, var
 
 
-def _world_size() -> int:
+def _world_size(group=None) -> int:
     dist = torch.distributed
-    return (dist.get_world_size()
+    return (dist.get_world_size(group)
             if dist.is_available() and dist.is_initialized() else 1)
 
 
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, in a new dense tensor (an NCHW
+    gradient in channels-last memory, as the convolutions keep it)."""
+    fmt = (torch.channels_last if t.dim() == 4 and not t.is_contiguous()
+           else torch.contiguous_format)
+    t = t.clone(memory_format=fmt)
+    torch.distributed.all_reduce(t, group=group)
+    return t
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks of the default group; the backward pass sums the
+    """Sum over the ranks of ``group``; the backward pass sums the
     gradients the same way, so each rank's rows get the gradient of every
     rank's loss through the shared statistic."""
 
     @staticmethod
-    def forward(ctx, x):
-        x = x.clone()
-        torch.distributed.all_reduce(x)
-        return x
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        torch.distributed.all_reduce(g)
-        return g
+        return _all_reduce(g, ctx.group), None
 
 
-def _global_var_mean(x32: torch.Tensor):
-    """(biased var, mean) per channel over every rank's (N, H, W), the
-    two-pass ``jnp.var`` of the JAX step: all-reduce the per-channel sums
-    for the mean, then the sums of squared deviations from it. Every rank
-    holds an equal shard."""
-    count = x32.shape[0] * x32.shape[2] * x32.shape[3] * _world_size()
-    mean = _AllReduceSum.apply(x32.sum(dim=(0, 2, 3))) / count
+def _global_var_mean(x32: torch.Tensor, group=None):
+    """(biased var, mean) per channel over every rank's (N, H, W) in
+    ``group``, the two-pass ``jnp.var`` of the JAX step: all-reduce the
+    per-channel sums for the mean, then the sums of squared deviations
+    from it. Every rank holds an equal shard."""
+    count = x32.shape[0] * x32.shape[2] * x32.shape[3] * _world_size(group)
+    mean = _AllReduceSum.apply(x32.sum(dim=(0, 2, 3)), group) / count
     dev = x32 - mean[:, None, None]
-    var = _AllReduceSum.apply((dev * dev).sum(dim=(0, 2, 3))) / count
+    var = _AllReduceSum.apply((dev * dev).sum(dim=(0, 2, 3)), group) / count
     return var, mean
+
+
+class TensorParallel(NamedTuple):
+    """A net's tensor-parallel layout on this rank: its tp group, the
+    group's size, the rank's index in it and the convs whose output
+    channels are sharded over it (parallel/mesh.MeshGroups.
+    tensor_parallel)."""
+
+    group: Any
+    size: int
+    rank: int
+    convs: frozenset = frozenset()
+
+
+class _CopyToTP(torch.autograd.Function):
+    """The identity forward; the backward sums the input's gradient over
+    the tp group (each rank's shard of output channels contributes its
+    part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def gather_channels(t: torch.Tensor, tp: TensorParallel,
+                    dim: int = 0) -> torch.Tensor:
+    """The full tensor of which ``t`` is tp rank ``tp.rank``'s shard along
+    ``dim``: every shard written into its place in a zero-filled buffer,
+    all-reduced over the tp group. Every rank of the group must call it."""
+    c = t.shape[dim]
+    shape = list(t.shape)
+    shape[dim] = c * tp.size
+    full = t.new_zeros(shape)
+    full.narrow(dim, tp.rank * c, c).copy_(t)
+    torch.distributed.all_reduce(full, group=tp.group)
+    return full
+
+
+class _GatherChannels(torch.autograd.Function):
+    """NCHW shards of channels -> the full NCHW tensor (channels-last
+    memory) on every rank of the tp group; the backward keeps this rank's
+    channels of the gradient (every rank computes the same full gradient
+    downstream, which runs replicated)."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        ctx.tp, ctx.c = tp, y.shape[1]
+        full = gather_channels(y.permute(0, 2, 3, 1), tp, dim=3)
+        return full.permute(0, 3, 1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.tp.rank * ctx.c, ctx.c), None
 
 
 def conv_bn_block_train(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                         act: bool = True, pad=None, *, bn=None,
-                        b: Optional[torch.Tensor] = None):
-    """Training conv block: conv + batch-stat BN (``bn`` = (gamma, beta))
-    or + bias ``b`` in the compute dtype, then LeakyReLU when ``act``.
-    Returns (y, stats): stats = (batch mean, batch var) with ``bn``, else
-    None."""
+                        b: Optional[torch.Tensor] = None, bn_group=None,
+                        tp: Optional[TensorParallel] = None):
+    """Training conv block: conv + batch-stat BN (``bn`` = (gamma, beta),
+    statistics over ``bn_group``) or + bias ``b`` in the compute dtype,
+    then LeakyReLU when ``act``. Returns (y, stats): stats = (batch mean,
+    batch var) with ``bn``, else None.
+
+    With ``tp`` the block is channel-sharded: ``w``, ``bn`` and ``b`` hold
+    this rank's output channels, the input passes :class:`_CopyToTP`, and
+    the block's output is gathered to every channel (``stats`` stay this
+    rank's channels)."""
+    if tp is not None:
+        x = _CopyToTP.apply(x, tp.group)
     y = conv2d_train(x, w, stride, pad)
     stats = None
     if bn is not None:
-        y, mean, var = batch_norm_train_stats(y, *bn)
+        y, mean, var = batch_norm_train_stats(y, *bn, group=bn_group)
         stats = (mean, var)
     else:
         y = y + b.to(y.dtype)[:, None, None]
-    return (leaky_relu(y) if act else y), stats
+    y = leaky_relu(y) if act else y
+    if tp is not None:
+        y = _GatherChannels.apply(y, tp)
+    return y, stats
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:

@@ -387,44 +387,73 @@ class TrainNet(nn.Module):
     code does (no ``torch.autocast``, whose policy would run BN and other
     ops in other dtypes), normalises with batch statistics, and returns
     NHWC float32 heads. Build it with :meth:`from_params`; read it back
-    with :meth:`to_params`."""
+    with :meth:`to_params`.
 
-    def __init__(self, spec: ModelSpec, convs: Dict[str, _TrainConv]):
+    Under a ('dp', 'tp') mesh BN reduces its statistics over
+    ``bn_group`` (None: the default group), and the convs named in
+    ``tp.convs`` (``tp``: models/layers.TensorParallel) hold this rank's
+    shard of their output channels and run the tensor-parallel block;
+    :meth:`full` and :meth:`to_params` gather them."""
+
+    def __init__(self, spec: ModelSpec, convs: Dict[str, _TrainConv],
+                 bn_group=None, tp: Optional[layers.TensorParallel] = None):
         super().__init__()
         self.spec = spec
         self.convs = nn.ModuleDict(convs)
+        self.bn_group = bn_group
+        self.tp = tp
 
     @classmethod
     def from_params(cls, spec: ModelSpec, params: Dict[str, Any], *,
-                    device="cuda") -> "TrainNet":
+                    device="cuda", bn_group=None,
+                    tp: Optional[layers.TensorParallel] = None
+                    ) -> "TrainNet":
         """From the unfolded numpy tree {conv: {"w" HWIO, "bn": {gamma,
         beta, mean, var}} or {"w", "b"}} that weights.load_model and the
         JAX package both use, on ``device`` (the card by default; true
-        float32 there: :func:`fastdet_tpu_torch.device.strict_fp32`)."""
+        float32 there: :func:`fastdet_tpu_torch.device.strict_fp32`).
+        With ``tp``, ``params`` holds this rank's shards of the convs in
+        ``tp.convs`` (parallel/mesh.shard_params)."""
         device = device_mod.resolve(device)
         if device.type == "cuda":
             device_mod.strict_fp32()
         return cls(spec, {l.name: _TrainConv(params[l.name], device)
-                          for l in spec.conv_specs()})
+                          for l in spec.conv_specs()}, bn_group, tp)
+
+    def tp_of(self, conv: str) -> Optional[layers.TensorParallel]:
+        """The tp layout when ``conv`` is channel-sharded, else None."""
+        return self.tp if self.tp and conv in self.tp.convs else None
+
+    def full(self, conv: str, t: torch.Tensor) -> torch.Tensor:
+        """``t``, a tensor of conv ``conv`` with its output channels on
+        dim 0 (a parameter, buffer or Adam moment), over every channel:
+        gathered over the tp group when the conv is sharded (every rank
+        of the group must call it then), else ``t`` itself."""
+        if self.tp_of(conv):
+            return layers.gather_channels(t.detach(), self.tp)
+        return t
 
     def to_params(self) -> Dict[str, Any]:
-        """The unfolded numpy tree (HWIO ``w``), float32 host copies."""
+        """The unfolded numpy tree (HWIO ``w``), float32 host copies, over
+        every channel (a sharded net gathers: collective over tp)."""
         out: Dict[str, Any] = {}
         for name, c in self.convs.items():
-            w = np.ascontiguousarray(_host(c.w).transpose(2, 3, 1, 0))
+            w = np.ascontiguousarray(
+                _host(self.full(name, c.w)).transpose(2, 3, 1, 0))
             if c.has_bn:
                 out[name] = {"w": w, "bn": {
-                    k: _host(getattr(c, k))
+                    k: _host(self.full(name, getattr(c, k)))
                     for k in ("gamma", "beta", "mean", "var")}}
             else:
-                out[name] = {"w": w, "b": _host(c.b)}
+                out[name] = {"w": w, "b": _host(self.full(name, c.b))}
         return out
 
     def forward(self, x: torch.Tensor, compute_dtype=None,
                 with_stats: bool = False):
         """(B, H, W, 3) float in [0, 1] -> per-scale NHWC float32 heads,
         and with ``with_stats`` also {conv: (batch mean, batch var)} of
-        every BN layer (float32, still on the autograd graph)."""
+        every BN layer (float32, still on the autograd graph; a sharded
+        conv's are its shard's)."""
         stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 
         def conv(l: Conv, cur: torch.Tensor) -> torch.Tensor:
@@ -432,7 +461,8 @@ class TrainNet(nn.Module):
             y, st = layers.conv_bn_block_train(
                 cur, c.w, l.stride, l.act, l.pad,
                 bn=(c.gamma, c.beta) if c.has_bn else None,
-                b=None if c.has_bn else c.b)
+                b=None if c.has_bn else c.b, bn_group=self.bn_group,
+                tp=self.tp_of(l.name))
             if st is not None:
                 stats[l.name] = st
             return y

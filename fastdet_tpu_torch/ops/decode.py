@@ -83,3 +83,33 @@ def select_candidates_components(comps: Comps, scores: torch.Tensor,
     valid = top >= thr
     return (sel_boxes, torch.where(valid, top, torch.full_like(top, -1.0)),
             torch.where(valid, sel_klass, torch.zeros_like(sel_klass)))
+
+
+def decode_head(head: torch.Tensor, anchors: torch.Tensor, num_classes: int,
+                image_size: int):
+    """Decode one scale of ONE image: head (H, W, 3*(5+C)) -> (boxes
+    (N, 4), scores (N,), klass (N,) int32), the JAX ``decode_head``."""
+    comps, scores, klass = decode_head_components(
+        head[None], anchors, num_classes, image_size)
+    return torch.stack([c[0] for c in comps], dim=-1), scores[0], klass[0]
+
+
+def decode_all(heads: Sequence[torch.Tensor], spec: ModelSpec):
+    """Decode and concatenate every scale of ONE image (per-scale (H, W,
+    3*(5+C)) heads), reference order: (boxes (N, 4), scores, klass)."""
+    comps, scores, klass = decode_all_components([h[None] for h in heads],
+                                                 spec)
+    return torch.stack([c[0] for c in comps], dim=-1), scores[0], klass[0]
+
+
+def select_candidates(boxes: torch.Tensor, scores: torch.Tensor,
+                      klass: torch.Tensor, threshold, max_candidates: int):
+    """The top-K candidates of ONE image with score >= ``threshold`` (a
+    scalar): boxes (K, 4), scores (K,) (-1 where invalid), klass (K,) (0
+    where invalid), the JAX ``select_candidates``."""
+    thr = torch.as_tensor(threshold, dtype=torch.float32,
+                          device=scores.device).reshape(1)
+    comps = tuple(boxes[None, :, i] for i in range(4))
+    b, s, k = select_candidates_components(comps, scores[None], klass[None],
+                                           thr, max_candidates)
+    return b[0], s[0], k[0]

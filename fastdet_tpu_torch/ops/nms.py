@@ -74,3 +74,16 @@ def soft_nms_batch(boxes: torch.Tensor, scores: torch.Tensor,
         i += 1
     return NMSResult(out_boxes, out_scores, out_klass, out_valid,
                      out_valid.sum(dim=1).to(torch.int32))
+
+
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, klass: torch.Tensor,
+             threshold, max_det: int) -> NMSResult:
+    """ONE image's soft-NMS, the JAX ``soft_nms``: boxes (K, 4), scores
+    (K,), klass (K,), a scalar threshold -> NMSResult of (max_det, ...)
+    fields and a () count. It is :func:`soft_nms_batch` on a batch of
+    one, whose early exit gives the fixed ``max_det``-trip result."""
+    thr = torch.as_tensor(threshold, dtype=torch.float32,
+                          device=scores.device).reshape(1)
+    res = soft_nms_batch(boxes[None], scores[None], klass[None], thr,
+                         max_det)
+    return NMSResult(*(a[0] for a in res))

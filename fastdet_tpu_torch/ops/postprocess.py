@@ -1,19 +1,23 @@
-"""Batched postprocess: decode -> candidate budget, and wire packing.
+"""Postprocess: decode -> candidate budget -> soft-NMS, and wire packing.
 
-Counterpart of the JAX package's ops/postprocess.py ``select_batch``
-and ``pack_wire_records``; the NMS between them is ops/nms.py.
+Counterpart of the JAX package's ops/postprocess.py: ``select_batch``
+(decode + budget, composed with nms.soft_nms_batch by the engine),
+``postprocess_image`` / ``postprocess_batch`` (the whole postprocess of
+one image or of a batch under one threshold), ``pack_wire_records`` and
+``to_reference_results`` (one image's result as the reference's tuples).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from fastdet_tpu_torch.models.yolov3 import ModelSpec
 from fastdet_tpu_torch.ops.decode import (decode_all_components,
                                           select_candidates_components)
-from fastdet_tpu_torch.ops.nms import NMSResult
+from fastdet_tpu_torch.ops.nms import NMSResult, soft_nms_batch
 
 MAX_CANDIDATES = 512
 MAX_DET = 100
@@ -27,6 +31,31 @@ def select_batch(heads: Sequence[torch.Tensor], spec: ModelSpec,
     comps, scores, klass = decode_all_components(heads, spec)
     return select_candidates_components(comps, scores, klass, thresholds,
                                         max_candidates)
+
+
+def postprocess_batch(heads: Sequence[torch.Tensor], spec: ModelSpec,
+                      threshold, max_candidates: int = MAX_CANDIDATES,
+                      max_det: int = MAX_DET) -> NMSResult:
+    """Per-scale (B, H, W, 3*(5+C)) heads and one threshold (a scalar,
+    shared by the batch) -> the batched NMSResult: :func:`select_batch`
+    then nms.soft_nms_batch with the threshold broadcast to (B,), the
+    path the engine serves."""
+    thr = torch.as_tensor(threshold, dtype=torch.float32,
+                          device=heads[0].device).reshape(()).expand(
+        heads[0].shape[0])
+    b, s, k = select_batch(heads, spec, thr, max_candidates)
+    return soft_nms_batch(b, s, k, thr, max_det)
+
+
+def postprocess_image(heads: Sequence[torch.Tensor], spec: ModelSpec,
+                      threshold, max_candidates: int = MAX_CANDIDATES,
+                      max_det: int = MAX_DET) -> NMSResult:
+    """ONE image's per-scale (H, W, 3*(5+C)) heads -> its NMSResult
+    ((max_det, ...) fields, a () count): :func:`postprocess_batch` on a
+    batch of one."""
+    res = postprocess_batch([h[None] for h in heads], spec, threshold,
+                            max_candidates, max_det)
+    return NMSResult(*(a[0] for a in res))
 
 
 def pack_wire_records(res: NMSResult, image_size: int) -> torch.Tensor:
@@ -56,3 +85,23 @@ def pack_wire_records(res: NMSResult, image_size: int) -> torch.Tensor:
     tail = torch.stack([cnt & 255, (cnt >> 8) & 255, (cnt >> 16) & 255,
                         (cnt >> 24) & 255], dim=-1).to(torch.uint8)
     return torch.cat([rec, tail], dim=-1)
+
+
+def to_reference_results(
+    result: NMSResult, image_size: int = 416
+) -> List[Tuple[int, float, float, float, float, float]]:
+    """ONE image's NMSResult (tensors or numpy arrays) -> the reference's
+    result tuples [(klass, conf, x, y, w, h)] in pixel coordinates (float64
+    products), pick order — the shape the reference's Detector.perform
+    returns."""
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+    boxes = np.asarray(host(result.boxes), dtype=np.float64) * image_size
+    scores = np.asarray(host(result.scores), dtype=np.float64)
+    klass = np.asarray(host(result.klass))
+    n = int(host(result.count))
+    return [(int(klass[i]), float(scores[i]), float(boxes[i, 0]),
+             float(boxes[i, 1]), float(boxes[i, 2]), float(boxes[i, 3]))
+            for i in range(n)]

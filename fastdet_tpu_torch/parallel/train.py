@@ -23,17 +23,30 @@ all-reduced over the ranks (models/layers.batch_norm_train_stats), each
 rank's loss divides by its own rows, and DDP's mean of the ranks'
 gradients is then the gradient of the global loss.
 
+Under a ('dp', 'tp') mesh (parallel/mesh.py) the state's net holds this
+rank's shards of the wide convs' output channels (models/layers.py runs
+them between the tp group's collectives), BN reduces over the dp group,
+and DDP averages over the dp group only: every rank of one dp index
+trains on the same rows.
+
+The recipe of the committed checkpoints (tools/train_detect3.py) adds a
+global-norm clip and a warmup-cosine schedule to AdamW
+(:func:`warmup_cosine_decay_schedule`, :func:`clip_by_global_norm`):
+:func:`init_train_state` takes them, and the default stays a constant lr
+without a clip.
+
 Differences from the JAX module: :class:`TrainState` holds the network
-and its optimizer (torch optimizers are bound to their parameters), so
-:func:`make_train_step` takes no optimizer and the step updates the state
-in place; the sharded step takes the process group's ranks for its mesh
-and has no 'tp' axis (parallel/mesh.py).
+and its optimizer (torch optimizers are bound to their parameters), the
+lr schedule and the clip norm, so :func:`make_train_step` takes no
+optimizer and the step updates the state in place; the sharded step
+takes the mesh's process groups.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -338,11 +351,78 @@ def yolo_loss_sparse(
 # Train state / step
 # ---------------------------------------------------------------------------
 
+Schedule = Callable[[int], float]
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Schedule:
+    """optax's ``warmup_cosine_decay_schedule``, a function of the step
+    count (the updates made before this one, so the first update runs at
+    ``init_value``): linear from ``init_value`` to ``peak_value`` over
+    ``warmup_steps``, then a cosine from ``peak_value`` to ``end_value``
+    over the remaining ``decay_steps - warmup_steps``; float64 here,
+    float32 in optax."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed "
+                         f"warmup_steps ({warmup_steps})")
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - count / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(count - warmup_steps, cos_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * c / cos_steps))
+        return peak_value * ((1 - alpha) * cosine ** exponent + alpha)
+
+    return schedule
+
+
+def clip_by_global_norm(net: TrainNet, max_norm: float) -> torch.Tensor:
+    """Scale the gradients of ``net`` as ``optax.clip_by_global_norm``:
+    unchanged while their global norm is under ``max_norm``, else each
+    ``g / norm * max_norm`` (optax's order of operations; no epsilon, as
+    optax has none). Returns the norm before the clip, a float32 tensor
+    on the net's device; no host sync.
+
+    The norm is over every trainable parameter (BN's running statistics
+    are buffers; their JAX gradients are zero). A tp-sharded conv's
+    squares are summed over the tp group, every other one counted once."""
+    grads = [(name.split(".")[1], p.grad) for name, p
+             in net.named_parameters() if p.grad is not None]
+    dev = grads[0][1].device
+    rep = torch.zeros((), dtype=torch.float32, device=dev)
+    shard = torch.zeros((), dtype=torch.float32, device=dev)
+    for conv, g in grads:
+        sq = torch.sum(g.float() * g.float())
+        if net.tp_of(conv):
+            shard = shard + sq
+        else:
+            rep = rep + sq
+    if net.tp is not None:
+        torch.distributed.all_reduce(shard, group=net.tp.group)
+    norm = torch.sqrt(rep + shard)
+    trigger = norm < max_norm
+    with torch.no_grad():
+        for _, g in grads:
+            g.copy_(torch.where(trigger, g, g / norm.to(g.dtype) * max_norm))
+    return norm
+
+
 @dataclass
 class TrainState:
+    """The net, its optimizer and the step count; ``schedule`` (the lr
+    as a function of ``step``, None: the optimizer's constant lr) and
+    ``clip_norm`` (None: no clip) make the step the recipe's chain."""
+
     net: TrainNet
     optimizer: torch.optim.Optimizer
     step: int = 0
+    schedule: Optional[Schedule] = None
+    clip_norm: Optional[float] = None
 
 
 def decay_mask(net: TrainNet) -> Dict[str, bool]:
@@ -352,11 +432,14 @@ def decay_mask(net: TrainNet) -> Dict[str, bool]:
     return {name: name.endswith(".w") for name, _ in net.named_parameters()}
 
 
-def make_optimizer(net: TrainNet, lr: float = 1e-3,
+def make_optimizer(net: TrainNet, lr: Union[float, Schedule] = 1e-3,
                    weight_decay: float = 5e-4) -> torch.optim.AdamW:
     """AdamW over ``net``: betas (0.9, 0.999), eps 1e-8, decoupled weight
     decay on the conv kernels only (two parameter groups) — the update
-    of ``optax.adamw(lr, weight_decay=..., mask=_decay_mask)``."""
+    of ``optax.adamw(lr, weight_decay=..., mask=_decay_mask)``. A
+    schedule ``lr`` sets the groups' lr to its step-0 value; the step
+    sets it from :attr:`TrainState.schedule` before every update."""
+    lr0 = float(lr(0)) if callable(lr) else lr
     mask = decay_mask(net)
     groups = {True: [], False: []}
     for name, p in net.named_parameters():
@@ -364,16 +447,33 @@ def make_optimizer(net: TrainNet, lr: float = 1e-3,
     return torch.optim.AdamW(
         [{"params": groups[True], "weight_decay": weight_decay},
          {"params": groups[False], "weight_decay": 0.0}],
-        lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        lr=lr0, betas=(0.9, 0.999), eps=1e-8)
 
 
 def init_train_state(spec: ModelSpec, params: Dict[str, Any], *,
-                     lr: float = 1e-3, weight_decay: float = 5e-4,
-                     device="cuda") -> TrainState:
+                     lr: Union[float, Schedule] = 1e-3,
+                     weight_decay: float = 5e-4,
+                     clip_norm: Optional[float] = None,
+                     device="cuda", groups=None) -> TrainState:
     """A step-0 state from the unfolded numpy tree ``params`` on
-    ``device`` (the card by default)."""
-    net = TrainNet.from_params(spec, params, device=device)
-    return TrainState(net, make_optimizer(net, lr, weight_decay), 0)
+    ``device`` (the card by default). ``lr`` is a float or a schedule of
+    the step (:func:`warmup_cosine_decay_schedule`); ``clip_norm`` clips
+    the gradients' global norm before the update
+    (:func:`clip_by_global_norm`). ``groups`` (parallel/mesh.MeshGroups)
+    makes this rank's state of a ('dp', 'tp') mesh: its shards of the
+    tp-sharded convs, BN over the dp group."""
+    bn_group = tp = None
+    if groups is not None:
+        from fastdet_tpu_torch.parallel import mesh as mesh_lib
+
+        bn_group, tp = groups.dp_group, groups.tensor_parallel(spec)
+        if tp is not None:
+            params = mesh_lib.shard_params(spec, groups.mesh, params,
+                                           groups.tp_rank)
+    net = TrainNet.from_params(spec, params, device=device,
+                               bn_group=bn_group, tp=tp)
+    return TrainState(net, make_optimizer(net, lr, weight_decay), 0,
+                      lr if callable(lr) else None, clip_norm)
 
 
 def _step(spec: ModelSpec, compute_dtype, sparse: bool, forward_net):
@@ -393,6 +493,13 @@ def _step(spec: ModelSpec, compute_dtype, sparse: bool, forward_net):
                 spec, net, images, targets, compute_dtype=compute_dtype,
                 collect_bn_stats=True)
         total.backward()
+        if state.clip_norm is not None:
+            metrics["grad_norm"] = clip_by_global_norm(state.net,
+                                                       state.clip_norm)
+        if state.schedule is not None:
+            lr = float(state.schedule(state.step))
+            for group in opt.param_groups:
+                group["lr"] = lr
         opt.step()
         bn_stats = metrics.pop("bn_stats")
         # EMA the BN running statistics used by the folded inference path
@@ -413,20 +520,24 @@ def make_train_step(spec: ModelSpec, *, compute_dtype=None,
                     sparse: bool = False):
     """The train step fn(state, images, *targets) -> (state, metrics).
 
-    One forward and backward, the optimizer update, then the EMA of BN's
-    running statistics from this step's batch statistics; ``state`` is
-    updated in place. ``sparse=True`` builds the slot-row variant:
+    One forward and backward, the clip and the schedule's lr when the
+    state has them, the optimizer update, then the EMA of BN's running
+    statistics from this step's batch statistics; ``state`` is updated
+    in place. ``sparse=True`` builds the slot-row variant:
     fn(state, images, slots) with slots from :func:`build_sparse_targets`.
-    The metrics are detached tensors of the loss before the update."""
+    The metrics are detached tensors of the loss before the update (and
+    "grad_norm", the norm before the clip, when the state clips)."""
     return _step(spec, compute_dtype, sparse, lambda state: state.net)
 
 
 def shard_batch(group, images, targets: Sequence):
     """This rank's rows of a global batch: (images[rows], targets'
-    rows), numpy arrays or tensors alike. ``group`` is the process group
-    (None: the default group); the batch must split into equal shards,
-    one per rank (the JAX ``shard_batch`` places the rows of each device
-    the same way)."""
+    rows), numpy arrays or tensors alike. ``group`` is the dp process
+    group (None: the default group; under a ('dp', 'tp') mesh
+    ``MeshGroups.dp_group``, so every tp rank of one dp index gets the
+    same rows); the batch must split into equal shards, one per dp rank
+    (the JAX ``shard_batch`` places the rows of each device the same
+    way)."""
     import torch.distributed as dist
 
     from fastdet_tpu_torch.parallel import mesh
@@ -437,21 +548,24 @@ def shard_batch(group, images, targets: Sequence):
 
 
 def make_sharded_train_step(spec: ModelSpec, *, compute_dtype=None,
-                            sparse: bool = False):
-    """The data-parallel train step fn(state, images, *targets) over the
-    default process group: each rank passes its rows
-    (:func:`shard_batch`) and its own replica of one state.
+                            sparse: bool = False, groups=None):
+    """The data-parallel train step fn(state, images, *targets): each
+    rank passes its rows (:func:`shard_batch`) and its own replica of one
+    state — under a ('dp', 'tp') mesh, ``groups`` (parallel/mesh.
+    MeshGroups) and a state made with them (:func:`init_train_state`),
+    whose net runs the tp-sharded convs itself.
 
     The forward runs through ``DistributedDataParallel`` over the state's
-    TrainNet (made at the first step, kept for the net), which averages
-    the ranks' gradients; with more than one rank BN normalises with the
-    global batch's statistics, so the step, the BN EMA and the loss are
-    the JAX global-batch step's. Buffers are not broadcast: every rank
-    computes the same EMA. At world size 1 the step is
-    :func:`make_train_step`'s."""
+    TrainNet (made at the first step, kept for the net) on the dp group
+    (the default group without ``groups``), which averages the ranks'
+    gradients; with more than one dp rank BN normalises with the global
+    batch's statistics, so the step, the BN EMA and the loss are the JAX
+    global-batch step's. Buffers are not broadcast: every rank computes
+    the same EMA. At world size 1 the step is :func:`make_train_step`'s."""
     from torch.nn.parallel import DistributedDataParallel
 
     wrapped: Dict[TrainNet, DistributedDataParallel] = {}
+    dp_group = groups.dp_group if groups is not None else None
 
     def ddp_of(state: TrainState):
         ddp = wrapped.get(state.net)
@@ -459,7 +573,7 @@ def make_sharded_train_step(spec: ModelSpec, *, compute_dtype=None,
             dev = next(state.net.parameters()).device
             ddp = wrapped[state.net] = DistributedDataParallel(
                 state.net, device_ids=[dev] if dev.type == "cuda" else None,
-                broadcast_buffers=False)
+                broadcast_buffers=False, process_group=dp_group)
         return ddp
 
     return _step(spec, compute_dtype, sparse, ddp_of)

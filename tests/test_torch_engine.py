@@ -178,8 +178,11 @@ def test_server_answers_client_and_stops(port_engine, native_ready):
                    for i in range(len(names))]
     finally:
         client.close()
-        state["loop"].call_soon_threadsafe(server.request_shutdown)
-        state["loop"].call_soon_threadsafe(state["task"].cancel)
+        # one callback: after request_shutdown the serve task may end
+        # and the loop close before a second call could be scheduled
+        task = state["task"]
+        state["loop"].call_soon_threadsafe(
+            lambda: (server.request_shutdown(), task.cancel()))
         thread.join(30)
         eng.close()
     assert not thread.is_alive()

@@ -279,11 +279,12 @@ def test_dp_engine_sparse_ingest_matches_single_device(tiny416, native_ready):
 def test_make_devices_and_mesh(monkeypatch):
     """Every visible card by default (raising without one, as the
     engine's default does), the given list otherwise; a dp degree must
-    match the device count."""
+    divide the device count, the rest going to 'tp'."""
     assert mesh.make_devices(["cpu", "cpu"]) == [torch.device("cpu")] * 2
     assert mesh.make_mesh(CPU8, dp=8).dp == 8
-    with pytest.raises(ValueError, match="data parallel only"):
-        mesh.make_mesh(CPU8, dp=4)
+    assert mesh.make_mesh(CPU8, dp=4).shape == {"dp": 4, "tp": 2}
+    with pytest.raises(ValueError, match="devices"):
+        mesh.make_mesh(CPU8, dp=3)
     assert mesh.dp_buckets((1, 4, 5, 8, 9), 4) == (4, 8, 12)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -70,8 +70,11 @@ def _serving(services):
         yield server.bound_port
     finally:
         if "task" in state:
-            state["loop"].call_soon_threadsafe(server.request_shutdown)
-            state["loop"].call_soon_threadsafe(state["task"].cancel)
+            # one callback: after request_shutdown the serve task may end
+            # and the loop close before a second call could be scheduled
+            task = state["task"]
+            state["loop"].call_soon_threadsafe(
+                lambda: (server.request_shutdown(), task.cancel()))
         thread.join(60)
         for svc in services.values():
             svc.engine.close()

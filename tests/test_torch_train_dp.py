@@ -256,9 +256,10 @@ def _cli(argv, world_size):
 
 
 def test_cli_train_two_ranks_writes_the_one_rank_export(tmp_path):
-    """cli.train with world_size=2 (two gloo ranks, each on its rows of
-    the same global batch) exports what the one-process run exports: one
-    step at batch 4, the BN running statistics at rtol 1e-5, every other
+    """cli.train with world_size=2 (two gloo ranks of the default mesh,
+    dp = 1 x tp = 2: tests/test_torch_train_tp.py's layout; the dp-only
+    step is this module's rank tests') exports what the one-process run
+    exports: one step at batch 4, the BN running statistics at rtol 1e-5, every other
     value within 2·lr + 1e-6 (a near-zero gradient may take either sign)
     and all but 1 % of them within 1e-6."""
     outs = {}
