@@ -118,6 +118,19 @@ Drives the port's main path end to end and checks every kernel on it:
      full width (batch 8, sparse loss, bf16 and f32); gathered over tp,
      the state is held against make_train_step's (f32 at the CPU tests'
      tolerances, bf16 loss rtol 1e-2), and the warm step walls printed;
+ 15. the measurement entry points, each in a fresh process (python -c
+     calling its main; the --all matrix's counts shrunk): the bench's
+     headline in int8 at batch 24 and in bf16 at batch 8 (96 and 48
+     frames a pass; ingest sparse:22 on the trained checkpoint, the
+     legs, sol_fps and self_consistent present, p50_local without an
+     error, B1 launched), --all (every row of BENCH_DETAIL.json, the
+     multiclient load answering every frame with no error, the int8
+     profile's ingest-kernel bucket non-zero), tools/saturation at 8
+     and 16 clients of 12 frames (every frame answered, the attribution
+     block) and tools/eval_map on the checkpoint in bf16 and int8 over
+     32 held-out scenes; every output goes to a temporary directory and
+     the repository's BENCH_*.json and bench_baseline.json stay as they
+     were;
 
 then prints the card line, the kernels line and, last, the result line.
 It exits nonzero with no result line when no CUDA card is present, when
@@ -2898,6 +2911,198 @@ def _tp_compare(got, want, grads, lr=1e-3):
         f"bar {mom:.3f} (bar 1)")}
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the measurement entry points
+# --------------------------------------------------------------------------
+
+BENCH_TIMEOUT_S = 300      # each entry point's process
+# the headline's legs and their bound, beside the JAX bench's keys
+LEG_KEYS = ("host_pack_fps", "device_fps", "wire_bytes_per_frame",
+            "inpass_link_mbps", "link_bound_fps", "sol_fps",
+            "self_consistent")
+DETAIL_ROWS = ("probes", "weights", "tiny80_single", "full80_single",
+               "rsu9_single", "full80_batched_fps", "full80_batched_int8_fps",
+               "device_profile_int8_b24", "tiny80_batched_int8_fps",
+               "rsu9_batched_int8_fps", "server_full_seq_p50_ms",
+               "server_rsu_seq_p50_ms", "multiclient")
+# the --all matrix's counts in [15], shrunk to keep the run in its limit
+ALL_CONSTS = {"ALL_FRAMES": 48, "SINGLE_REQUESTS": 10, "REF422_REQUESTS": 10,
+              "SEQ_REQUESTS": 5, "MULTI_PER_CLIENT": 6,
+              "MULTI_WARM_PER_CLIENT": 2}
+
+
+def _entry(module, args, consts=None, tag="[15]", one_line=True):
+    """Run ``module``'s main(argv) in a fresh process (the module's
+    constants set first) on the card; returns (the one-line JSON objects
+    of its standard output, its standard error, wall s). A nonzero exit,
+    or no such line where ``one_line``, fails the phase."""
+    code = "\n".join(
+        ["import sys", f"import {module} as m"]
+        + [f"m.{k} = {v!r}" for k, v in (consts or {}).items()]
+        + [f"r = m.main([{module.rsplit('.', 1)[-1]!r}] + {list(args)!r})",
+           "sys.exit(r if isinstance(r, int) else 0)"])
+    env = dict(os.environ)
+    env.pop("FASTDET_LAZY_WARM", None)   # the entry points' own default
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S, env=env,
+                          cwd=REPO)
+    wall = time.time() - t0
+    expect(proc.returncode == 0,
+           f"{tag} {module} {' '.join(args)}: rc {proc.returncode}\n"
+           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    lines = []
+    for line in proc.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("{") and line.endswith("}"):
+            lines.append(json.loads(line))
+    expect(bool(lines) or not one_line,
+           f"{tag} {module}: no JSON line printed")
+    return lines, proc.stderr, wall
+
+
+def _launches_line(stderr, tag):
+    for line in reversed(stderr.splitlines()):
+        if line.startswith('{"launches"'):
+            return json.loads(line)["launches"]
+    raise SmokeFailure(f"{tag} no launches line on standard error")
+
+
+def _headline(mode, batch, frames, out_dir):
+    tag = f"[15] headline {mode}"
+    lines, err, wall = _entry(
+        "fastdet_tpu_torch.bench",
+        ["--frames", str(frames), "--batch", str(batch), "--inflight", "5",
+         "--mode", mode, "--out", out_dir],
+        {"WARM_FRAMES": 2 * batch})
+    h = lines[-1]
+    missing = [k for k in ("metric", "value", "p50_ms", "p50_local",
+                           "passes_fps", "link_probe_mbps", "ingest",
+                           "weights", "compile_s", "warm_attribution",
+                           "card") + LEG_KEYS if k not in h]
+    expect(not missing, f"{tag}: keys missing {missing}")
+    expect(h["metric"] == "e2e_frames_per_sec_per_chip_416_yolov3_full"
+           and h["mode"] == mode and h["batch"] == batch,
+           f"{tag}: metric / mode / batch {h['metric']} {h['mode']} "
+           f"{h['batch']}")
+    expect(h["ingest"] == "sparse:22", f"{tag}: ingest {h['ingest']}")
+    expect(h["weights"] == "trained", f"{tag}: weights {h['weights']}")
+    expect("error" not in h["p50_local"] and "est_ms" in h["p50_local"],
+           f"{tag}: p50_local {h['p50_local']}")
+    expect(len(h["passes_fps"]) == 3 and all(
+        math.isfinite(v) and v > 0 for v in h["passes_fps"] + [h["p50_ms"]]),
+        f"{tag}: passes {h['passes_fps']}, p50 {h['p50_ms']}")
+    launches = _launches_line(err, tag)
+    expect(launches["B1"] > 0, f"{tag}: B1 not launched ({launches})")
+    say(f"{tag} batch {batch}, {frames} frames a pass ({wall:.1f} s): "
+        f"{h['value']} frames/s (passes {h['passes_fps']}), p50 "
+        f"{h['p50_ms']} ms, p50_local {h['p50_local']}, ingest "
+        f"{h['ingest']}, compile_s {h['compile_s']}, legs "
+        + ", ".join(f"{k} {h[k]}" for k in LEG_KEYS)
+        + f"; link probes {h['link_probe_mbps']} MB/s; launches {launches}; "
+        f"card {h['card']}")
+    return h
+
+
+def phase_bench(torch):
+    """[15] the measurement entry points, each in a fresh process: the
+    bench's headline in int8 (batch 24) and bf16 (batch 8), --all with
+    its counts shrunk, the saturation sweep at 8 and 16 clients and
+    eval_map on the checkpoint in bf16 and int8. No repository file is
+    written: each writes into a temporary --out."""
+    import hashlib
+    import tempfile
+
+    def digests():
+        out = {}
+        for name in ("BENCH_DETAIL.json", "BENCH_SATURATION.json",
+                     "bench_baseline.json"):
+            p = os.path.join(REPO, name)
+            if os.path.exists(p):
+                with open(p, "rb") as fp:
+                    out[name] = hashlib.sha256(fp.read()).hexdigest()
+        return out
+
+    before = digests()
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="fastdet-bench-") as d:
+        _headline("int8", 24, 96, d)
+        _headline("bf16", 8, 48, d)
+
+        lines, err, wall = _entry(
+            "fastdet_tpu_torch.bench", ["--all", "--out", d], ALL_CONSTS)
+        detail = lines[-1]
+        with open(os.path.join(d, "BENCH_DETAIL.json")) as fp:
+            expect(json.load(fp) == detail,
+                   "[15] --all: the written detail differs from the printed")
+        missing = [k for k in DETAIL_ROWS if k not in detail]
+        expect(not missing, f"[15] --all: rows missing {missing}")
+        mc = detail["multiclient"]
+        n_mc = 8 * ALL_CONSTS["MULTI_PER_CLIENT"]
+        expect(mc["frames_answered"] == n_mc and mc["errors"] == [],
+               f"[15] --all multiclient {mc}")
+        prof = detail["device_profile_int8_b24"]
+        expect("error" not in prof
+               and prof["buckets"].get("ingest-kernel", 0) > 0,
+               f"[15] --all device profile {prof}")
+        launches = _launches_line(err, "[15] --all")
+        expect(launches["B1"] > 0, f"[15] --all: B1 not launched")
+        say(f"[15] --all ({wall:.1f} s): "
+            + "; ".join(f"{k} {detail[k]}" for k in DETAIL_ROWS
+                        if k not in ("probes", "device_profile_int8_b24",
+                                     "multiclient")))
+        say(f"[15] --all multiclient {mc}; launches {launches}")
+        say(f"[15] --all device profile int8 b24: buckets {prof['buckets']} "
+            f"total {prof['total_ms_per_batch']} ms, busy "
+            f"{prof['busy_ms_per_batch']} of {prof['wall_ms_per_batch']} ms "
+            f"({100 * prof['busy_share']:.1f} %), "
+            f"{prof['launches_per_batch']} launches a batch")
+
+        sat_out = os.path.join(d, "sat.json")
+        lines, _, wall = _entry(
+            "fastdet_tpu_torch.tools.saturation",
+            ["--clients", "8,16", "--per-client", "12", "--frames", "48",
+             "--out", sat_out], one_line=False)
+        with open(sat_out) as fp:
+            sat = json.load(fp)
+        for r in sat["sweep"]:
+            expect(r["frames_answered"] == 12 * r["clients"]
+                   and r["errors"] == [], f"[15] saturation row {r}")
+        expect({"best_row_clients", "serving_fps", "engine_ceiling_fps",
+                "gap_pct", "stages_ms", "avg_batch"}
+               <= set(sat.get("attribution", {})),
+               f"[15] saturation attribution {sat.get('attribution')}")
+        say(f"[15] saturation ({wall:.1f} s): ceiling "
+            f"{sat['engine_ceiling']}; "
+            + "; ".join(f"{r['clients']} clients {r['fps']} f/s p50 "
+                        f"{r['p50_ms']} p99 {r['p99_ms']} avg batch "
+                        f"{r['avg_batch']}" for r in sat["sweep"])
+            + f"; gap {sat['attribution']['gap_pct']} %")
+
+        map_out = os.path.join(d, "map.json")
+        lines, _, wall = _entry(
+            "fastdet_tpu_torch.tools.eval_map",
+            ["--weights", os.path.join(REPO, "weights", "detect80_full.npz"),
+             "--n", "32", "--modes", "bf16,int8", "--out", map_out])
+        with open(map_out) as fp:
+            ev = json.load(fp)
+        for mode in ("bf16", "int8"):
+            m = ev["modes"][mode]
+            expect(0.0 <= m["map50"] <= 1.0 and 0.0 <= m["map50_95"] <= 1.0,
+                   f"[15] eval_map {mode}: {m['map50']} {m['map50_95']}")
+        expect("summary" in ev, "[15] eval_map: no int8-vs-bf16 summary")
+        say(f"[15] eval_map detect80_full n=32 ({wall:.1f} s): "
+            + "; ".join(f"{k} mAP@0.5 {ev['modes'][k]['map50']:.4f} "
+                        f"mAP@[.5:.95] {ev['modes'][k]['map50_95']:.4f}"
+                        for k in ("bf16", "int8"))
+            + f"; {ev['summary']}")
+    expect(digests() == before,
+           "[15] a repository benchmark file changed")
+    say(f"[15] entry points done in {time.time() - t_phase:.1f} s")
+
+
 def kernels_line(b1, b2, launches, d):
     def entry(name, src, replaces, res, n):
         ms, plain_ms, bound_ms = res["timing"][8]
@@ -2994,6 +3199,7 @@ def main(argv) -> int:
         phase_trace(torch, fixtures, services)
         phase_train_detect(torch, gate, gate_ok, card)
         phase_tp(torch, card)
+        phase_bench(torch)
     finally:
         for svc in services.values():
             svc.engine.close()

@@ -62,7 +62,9 @@ def test_every_module_imports_with_jax_blocked():
                   "client_api", "utils.labels", "utils.draw",
                   "parallel.train", "cli.detector", "cli.client",
                   "cli.demo", "cli.httpserver", "cli.inspect_weights",
-                  "cli.train"):
+                  "cli.train", "bench", "tools.client_load",
+                  "tools.profile_device", "tools.saturation",
+                  "tools.eval_map"):
             assert "fastdet_tpu_torch." + m in mods, m
         import chip_smoke
         try:
