@@ -131,6 +131,19 @@ Drives the port's main path end to end and checks every kernel on it:
      32 held-out scenes; every output goes to a temporary directory and
      the repository's BENCH_*.json and bench_baseline.json stay as they
      were;
+ 16. the JAX package's last tools (fastdet_tpu_torch/tools/), each's
+     main in one of two fresh processes, at reduced counts, with B1's
+     and B2's launch counts set to 0 before each tool and read after it:
+     verify_kernel (B1 bit-exact on the esc16-extreme case, coefficients
+     with |v| > 256 counted, and on a q95 scene; exit 0), bisect_kernel
+     (five case classes OK), measure_sparse_stats (a row for each bench
+     frame), probe_overlap, bench_int8 (ms per image of bf16 / int8 /
+     f32 at b1 and b8, int8_speedup_b{b}); then on full:80
+     (detect80_full.npz) probe_hostcpu, profile_legs and probe_rpc_split
+     --sync (int8 b24), bench_sparse (bf16 b8: sparse, planes and pixels;
+     B1 and B2 launched), profile_serving (phases A-C, --profile) and
+     ab_serving --passes 1; every served frame answered, B1 launched by
+     each engine tool; the repository's benchmark files unchanged;
 
 then prints the card line, the kernels line and, last, the result line.
 It exits nonzero with no result line when no CUDA card is present, when
@@ -152,7 +165,7 @@ import sys
 import threading
 import time
 
-WATCHDOG_S = 600           # whole run, build included
+WATCHDOG_S = 1000          # whole run, build included
 THR = 0.3                  # detection threshold of every request
 IOU_MIN = 0.999            # box agreement between two runs of one frame
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of an H100 SXM (NVIDIA data sheet)
@@ -2931,6 +2944,20 @@ ALL_CONSTS = {"ALL_FRAMES": 48, "SINGLE_REQUESTS": 10, "REF422_REQUESTS": 10,
               "MULTI_WARM_PER_CLIENT": 2}
 
 
+def _bench_digests():
+    """sha256 of the JAX package's benchmark files at the repository root."""
+    import hashlib
+
+    out = {}
+    for name in ("BENCH_DETAIL.json", "BENCH_SATURATION.json",
+                 "bench_baseline.json"):
+        p = os.path.join(REPO, name)
+        if os.path.exists(p):
+            with open(p, "rb") as fp:
+                out[name] = hashlib.sha256(fp.read()).hexdigest()
+    return out
+
+
 def _entry(module, args, consts=None, tag="[15]", one_line=True):
     """Run ``module``'s main(argv) in a fresh process (the module's
     constants set first) on the card; returns (the one-line JSON objects
@@ -3012,20 +3039,9 @@ def phase_bench(torch):
     its counts shrunk, the saturation sweep at 8 and 16 clients and
     eval_map on the checkpoint in bf16 and int8. No repository file is
     written: each writes into a temporary --out."""
-    import hashlib
     import tempfile
 
-    def digests():
-        out = {}
-        for name in ("BENCH_DETAIL.json", "BENCH_SATURATION.json",
-                     "bench_baseline.json"):
-            p = os.path.join(REPO, name)
-            if os.path.exists(p):
-                with open(p, "rb") as fp:
-                    out[name] = hashlib.sha256(fp.read()).hexdigest()
-        return out
-
-    before = digests()
+    before = _bench_digests()
     t_phase = time.time()
     with tempfile.TemporaryDirectory(prefix="fastdet-bench-") as d:
         _headline("int8", 24, 96, d)
@@ -3098,9 +3114,237 @@ def phase_bench(torch):
                         f"mAP@[.5:.95] {ev['modes'][k]['map50_95']:.4f}"
                         for k in ("bf16", "int8"))
             + f"; {ev['summary']}")
-    expect(digests() == before,
+    expect(_bench_digests() == before,
            "[15] a repository benchmark file changed")
     say(f"[15] entry points done in {time.time() - t_phase:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# Phase 16: the JAX package's last tools
+# --------------------------------------------------------------------------
+
+TOOL_MARK = "@@fd-tool@@ "
+TOOL_TIMEOUT_S = 300       # each group's process
+# no engine, or small nets of their own
+TOOLS_KERNEL = (
+    ("verify_kernel", [], {}),
+    ("bisect_kernel", [], {}),
+    ("measure_sparse_stats", [], {}),
+    ("probe_overlap", ["--iters", "10"], {}),
+    ("bench_int8", ["--iters", "10"], {}),
+)
+# engines on full:80 (the bench's model: weights/detect80_full.npz)
+TOOLS_ENGINE = (
+    ("probe_hostcpu", ["--frames", "48"], {}),
+    ("profile_legs", ["--batches", "2"], {"LINES": 10}),
+    ("probe_rpc_split", ["--sync", "--iters", "3"], {"PIPE_ITERS": 8}),
+    ("bench_sparse", ["--iters", "5"], {}),
+    ("profile_serving", ["--frames", "96", "--clients", "4", "--window",
+                         "4", "--profile"],
+     {"PHASE_A_WARM_FRAMES": 16, "WARM_PER_CLIENT": 2}),
+    ("ab_serving", ["--passes", "1", "--clients", "4", "--per-client", "6"],
+     {"WARM_PER_CLIENT": 2}),
+)
+
+
+def _tool_group(calls):
+    """Run each (tool, args, module constants) of ``calls`` in turn in one
+    fresh process on the card: B1's and B2's launch counts set to 0, the
+    constants set, ``main(argv)``, then a line with its exit code and the
+    counts. Returns ({tool: (its standard output, rc, launches)}, the
+    process's wall s); the process must exit 0."""
+    calls = [("fastdet_tpu_torch.tools." + name, args, consts)
+             for name, args, consts in calls]
+    code = "\n".join([
+        "import importlib, json, sys",
+        "from fastdet_tpu_torch.ops import plane_ingest, sparse_ingest",
+        "bad = 0",
+        f"for mod, args, consts in {calls!r}:",
+        "    m = importlib.import_module(mod)",
+        "    for k, v in consts.items():",
+        "        setattr(m, k, v)",
+        "    sparse_ingest.LAUNCHES = plane_ingest.LAUNCHES = 0",
+        f"    print({TOOL_MARK!r} + mod, flush=True)",
+        "    r = m.main([mod.rsplit('.', 1)[-1]] + args)",
+        "    r = r if isinstance(r, int) else 0",
+        "    bad |= r != 0",
+        f"    print({TOOL_MARK!r} + json.dumps({{'rc': r, 'launches': {{"
+        "'B1': sparse_ingest.LAUNCHES, 'B2': plane_ingest.LAUNCHES}}),"
+        " flush=True)",
+        "sys.exit(1 if bad else 0)"])
+    env = dict(os.environ)
+    env.pop("FASTDET_LAZY_WARM", None)   # the tools' own default
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=TOOL_TIMEOUT_S, env=env,
+                          cwd=REPO)
+    wall = time.time() - t0
+    expect(proc.returncode == 0,
+           f"[16] tools {[c[0] for c in calls]}: rc {proc.returncode}\n"
+           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out = {}
+    cur, lines = None, []
+    for line in proc.stdout.splitlines():
+        if not line.startswith(TOOL_MARK):
+            lines.append(line)
+        elif cur is None:
+            cur, lines = line[len(TOOL_MARK):].rsplit(".", 1)[-1], []
+        else:
+            end = json.loads(line[len(TOOL_MARK):])
+            out[cur] = ("\n".join(lines), end["rc"], end["launches"])
+            cur = None
+    missing = [c[0].rsplit(".", 1)[-1] for c in calls
+               if c[0].rsplit(".", 1)[-1] not in out]
+    expect(not missing, f"[16] tools without a result: {missing}")
+    return out, wall
+
+
+def _tool_lines(text, prefixes):
+    """The first line of ``text`` starting with each prefix (stripped), by
+    prefix; a prefix without a line fails the phase."""
+    found = {}
+    for line in text.splitlines():
+        for pre in prefixes:
+            if pre not in found and line.strip().startswith(pre):
+                found[pre] = line.strip()
+    missing = [p for p in prefixes if p not in found]
+    expect(not missing, f"[16] lines missing {missing} in:\n{text[-2000:]}")
+    return found
+
+
+def phase_tools(torch):
+    """[16] the JAX package's last tools, each's main on the card in one
+    of two fresh processes (no engine; full:80 engines). Each tool's
+    first line is the card line; each must exit 0 with its tags."""
+    import re
+
+    from fastdet_tpu_torch import bench
+
+    card = bench.card_line(torch.device("cuda", 0))
+    before = _bench_digests()
+    t_phase = time.time()
+    res, wall = _tool_group(TOOLS_KERNEL)
+    say(f"[16] verify_kernel, bisect_kernel, measure_sparse_stats, "
+        f"probe_overlap, bench_int8 in one process: {wall:.1f} s")
+    for name, (text, rc, launches) in res.items():
+        expect(rc == 0, f"[16] {name} returned {rc}:\n{text[-2000:]}")
+        expect(text.splitlines()[0] == card,
+               f"[16] {name}: first line {text.splitlines()[0]!r}")
+
+    text, _, launches = res["verify_kernel"]
+    found = _tool_lines(text, ("OK: randomized case bit-exact",
+                               "OK: scene case bit-exact"))
+    n16 = re.search(r"(\d+) with \|v\| > 256",
+                    found["OK: randomized case bit-exact"])
+    expect(n16 is not None and int(n16.group(1)) > 0,
+           f"[16] verify_kernel: no coefficient with |v| > 256 ({text})")
+    expect(launches["B1"] >= 2, f"[16] verify_kernel launches {launches}")
+    say(f"[16] verify_kernel: {found['OK: randomized case bit-exact']}; "
+        f"{found['OK: scene case bit-exact']}; launches {launches}")
+
+    text, _, launches = res["bisect_kernel"]
+    classes = ("no-esc small-nnz", "no-esc", "esc8-only", "esc16-small",
+               "dense nnz")
+    oks = [c for c in classes if f"{c}: OK" in text.splitlines()]
+    expect(len(oks) == 5, f"[16] bisect_kernel: OK only on {oks}:\n{text}")
+    expect(launches["B1"] >= 5, f"[16] bisect_kernel launches {launches}")
+    say(f"[16] bisect_kernel: OK on all five classes; launches {launches}")
+
+    text, _, _ = res["measure_sparse_stats"]
+    rows = [line for line in text.splitlines() if line.startswith("== ")]
+    expect(all(any(r.startswith(f"== bench{i}: nb=") for r in rows)
+               for i in range(6)),
+           f"[16] measure_sparse_stats rows {rows}")
+    bytes_rows = [line.strip() for line in text.splitlines()
+                  if "bytes/frame:" in line]
+    say(f"[16] measure_sparse_stats: {len(rows)} frames; {rows[0]}; "
+        f"{bytes_rows[0]}")
+
+    text, _, _ = res["probe_overlap"]
+    found = _tool_lines(text, ("backend=", "compute:", "put:", "exec:",
+                               "execp:", "fetch:", "pipe:"))
+    say("[16] probe_overlap (--iters 10): " + "; ".join(
+        found[k] for k in ("compute:", "put:", "exec:", "execp:", "fetch:",
+                           "pipe:")))
+
+    text, _, _ = res["bench_int8"]
+    table = json.loads(text.splitlines()[-1])
+    for mode in ("bf16", "int8", "f32"):
+        for b in (1, 8):
+            v = table.get(mode, {}).get(f"b{b}_ms_per_img")
+            expect(v is not None and math.isfinite(v) and v > 0,
+                   f"[16] bench_int8 {mode} b{b}: {table}")
+    for b in (1, 8):
+        expect(f"int8_speedup_b{b}" in table,
+               f"[16] bench_int8: no int8_speedup_b{b} in {table}")
+    say(f"[16] bench_int8 (synthetic:full, --iters 10): {json.dumps(table)}")
+
+    res, wall = _tool_group(TOOLS_ENGINE)
+    say(f"[16] probe_hostcpu, profile_legs, probe_rpc_split, bench_sparse, "
+        f"profile_serving, ab_serving in one process: {wall:.1f} s")
+    for name, (text, rc, launches) in res.items():
+        expect(rc == 0, f"[16] {name} returned {rc}:\n{text[-2000:]}")
+        expect(text.splitlines()[0] == card,
+               f"[16] {name}: first line {text.splitlines()[0]!r}")
+        expect(launches["B1"] > 0, f"[16] {name}: B1 not launched "
+                                   f"({launches})")
+
+    text, _, launches = res["probe_hostcpu"]
+    found = _tool_lines(text, ("full ", "prepack ", "packonly "))
+    say(f"[16] probe_hostcpu int8 b24 (--frames 48): "
+        + "; ".join(found.values()) + f"; launches {launches}")
+
+    text, _, launches = res["profile_legs"]
+    found = _tool_lines(text, ("===== packonly", "===== prepack"))
+    say(f"[16] profile_legs int8 b24 (--batches 2): "
+        + ", ".join(found.values()) + f"; launches {launches}")
+
+    text, _, launches = res["probe_rpc_split"]
+    found = _tool_lines(text, ("row bytes:", "put packed (blocked)",
+                               "put thr (blocked)", "exec resident (blocked)",
+                               "fetch result", "full sync chain",
+                               "put tiny", "put packed (1.2MB)",
+                               "exec resident  ", "put+exec chain"))
+    say("[16] probe_rpc_split --sync int8 b24: "
+        + "; ".join(" ".join(v.split()) for v in found.values())
+        + f"; launches {launches}")
+
+    text, _, launches = res["bench_sparse"]
+    found = _tool_lines(text, ("layout=", "sparse ", "planes ", "pixels ",
+                               "host sparse", "host planes", "host pixels"))
+    expect("tier=std" in found["layout="],
+           f"[16] bench_sparse: {found['layout=']}")
+    expect(launches["B1"] > 0 and launches["B2"] > 0,
+           f"[16] bench_sparse: B1 and B2 must both launch ({launches})")
+    say("[16] bench_sparse bf16 b8 (--iters 5): "
+        + "; ".join(" ".join(v.split()) for v in found.values())
+        + f"; launches {launches}")
+
+    text, _, launches = res["profile_serving"]
+    found = _tool_lines(text, ("warmup:", "A engine batched",
+                               "B service direct", "C sockets",
+                               "--- event-loop thread profile"))
+    expect("errors=[])" in found["C sockets"],
+           f"[16] profile_serving: {found['C sockets']}")
+    say("[16] profile_serving int8 (--frames 96, 4 clients, window 4): "
+        + "; ".join(" ".join(found[k].split()) for k in
+                    ("warmup:", "A engine batched", "B service direct",
+                     "C sockets")) + f"; launches {launches}")
+
+    text, _, launches = res["ab_serving"]
+    passes = [line for line in text.splitlines() if line.startswith("pass 0 ")]
+    expect(len(passes) == 3 and all(line.endswith("errors=[]")
+                                    for line in passes),
+           f"[16] ab_serving passes {passes}")
+    _tool_lines(text, ("summary (median over passes):",))
+    say("[16] ab_serving --passes 1 (4 clients x 6 frames): "
+        + "; ".join(passes) + f"; launches {launches}")
+
+    expect(_bench_digests() == before,
+           "[16] a repository benchmark file changed")
+    say(f"[16] tools done in {time.time() - t_phase:.1f} s")
 
 
 def kernels_line(b1, b2, launches, d):
@@ -3200,6 +3444,7 @@ def main(argv) -> int:
         phase_train_detect(torch, gate, gate_ok, card)
         phase_tp(torch, card)
         phase_bench(torch)
+        phase_tools(torch)
     finally:
         for svc in services.values():
             svc.engine.close()

@@ -252,6 +252,42 @@ def probe_link_mbps(n: int = 6, size: int = 1200 * 1024, device=None) -> float:
                      else _first_device("cuda"))
 
 
+def layout_groups(engine, jpegs):
+    """{(hs, vs): [frame indices]} of the frames, as the engine groups
+    them for the sparse route."""
+    from fastdet_tpu_torch.runtime import native_jpeg
+
+    size = engine.spec.image_size
+    groups = {}
+    for i, d in enumerate(jpegs):
+        _, _, hs, vs = native_jpeg.scan_layout(d, expected_size=(size, size))
+        groups.setdefault((hs, vs), []).append(i)
+    return groups
+
+
+def stage_prepacked(engine, jpegs, thr_all):
+    """Stage the frames once on the std tier: (layout, frame indices,
+    packed rows, thresholds, the engine's sparse program for them), or
+    None when they do not ride one std-tier sparse group."""
+    staged, jobs = engine._stage_sparse(jpegs, thr_all,
+                                        layout_groups(engine, jpegs), "std")
+    overflow, _ = engine._run_sparse_jobs(jobs)
+    if overflow or len(staged) != 1:
+        return None
+    (layout, idxs, packed, thr), = staged
+    fn = functools.partial(engine._pipeline_sparse, layout=layout, tier="std")
+    return layout, idxs, packed, thr, fn
+
+
+def submit_prepacked(engine, fn, packed, idxs):
+    """Dispatch staged rows through the engine's transfer worker, as
+    detect_async_sparse does; fetch with ``fetch`` / ``fetch_wire``."""
+    from fastdet_tpu_torch.runtime.engine import PlanesDispatch
+
+    res = engine._dispatch_async(fn, packed)
+    return PlanesDispatch([(res, list(idxs))], counts={"sparse": len(idxs)})
+
+
 def measure_legs(engine, jpegs, batch: int, inflight: int,
                  n_batches: int = 10):
     """The legs beside the headline, each timed alone:
@@ -268,21 +304,13 @@ def measure_legs(engine, jpegs, batch: int, inflight: int,
     Returns (host_pack_fps, device_fps, bytes_per_frame,
     inpass_link_mbps), or None when the frames do not ride one std-tier
     sparse group (the legs would not describe the headline's path)."""
-    from fastdet_tpu_torch.runtime import native_jpeg
-    from fastdet_tpu_torch.runtime.engine import PlanesDispatch
-
     bj = [jpegs[i % len(jpegs)] for i in range(batch)]
     thr_all = np.full((batch,), BENCH_THRESHOLD, np.float32)
-    size = engine.spec.image_size
-    groups = {}
-    for i, d in enumerate(bj):
-        _, _, hs, vs = native_jpeg.scan_layout(d, expected_size=(size, size))
-        groups.setdefault((hs, vs), []).append(i)
-
-    staged, jobs = engine._stage_sparse(bj, thr_all, groups, "std")
-    overflow, _ = engine._run_sparse_jobs(jobs)
-    if overflow or len(staged) != 1:
+    staged = stage_prepacked(engine, bj, thr_all)
+    if staged is None:
         return None
+    _, idxs, packed, _, fn = staged
+    groups = layout_groups(engine, bj)
 
     # host leg: decode + pack only
     t0 = time.perf_counter()
@@ -292,12 +320,8 @@ def measure_legs(engine, jpegs, batch: int, inflight: int,
     host_dt = time.perf_counter() - t0
 
     # device leg: re-dispatch the staged rows, pipelined like serving
-    (layout, idxs, packed, _thr), = staged
-    fn = functools.partial(engine._pipeline_sparse, layout=layout, tier="std")
-
     def submit():
-        res = engine._dispatch_async(fn, packed)
-        return PlanesDispatch([(res, list(idxs))], counts={"sparse": batch})
+        return submit_prepacked(engine, fn, packed, idxs)
 
     engine.fetch_wire(submit(), batch)   # warm
     q = deque()

@@ -355,3 +355,22 @@ def test_coeff_route_equals_sparse_route_on_card(mode):
             assert got == want
     finally:
         eng.close()
+
+
+@pytest.mark.gpu
+def test_verify_kernel_tool_exits_zero_on_card():
+    """The card counterpart of tests/test_kernel_hw.py: the standalone
+    parity tool (B1 on the esc16-extreme case and a q95 scene against the
+    plain reconstruction) exits 0 in a process of its own."""
+    import subprocess
+    import sys
+
+    _card()
+    repo = TESTDATA.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "fastdet_tpu_torch.tools.verify_kernel"],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 0, out[-3000:]
+    assert "OK: randomized case bit-exact" in out
+    assert "OK: scene case bit-exact" in out
