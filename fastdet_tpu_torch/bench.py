@@ -284,7 +284,7 @@ def submit_prepacked(engine, fn, packed, idxs):
     detect_async_sparse does; fetch with ``fetch`` / ``fetch_wire``."""
     from fastdet_tpu_torch.runtime.engine import PlanesDispatch
 
-    res = engine._dispatch_async(fn, packed)
+    res = engine._dispatch_async(fn, packed, part="prepacked")
     return PlanesDispatch([(res, list(idxs))], counts={"sparse": len(idxs)})
 
 

@@ -71,6 +71,9 @@ from fastdet_tpu_torch.ops import sparse_ingest
 from fastdet_tpu_torch.parallel import mesh as mesh_lib
 from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
 from fastdet_tpu_torch.runtime import native_jpeg
+from fastdet_tpu_torch.utils import profiling
+from fastdet_tpu_torch.utils.profiling import GLOBAL as STAGES
+from fastdet_tpu_torch.utils.profiling import now_ns
 
 logger = logging.getLogger(__name__)
 
@@ -461,25 +464,41 @@ class DetectionEngine:
             return t.pin_memory().to(dev, non_blocking=True)
         return t
 
-    def _run_shard(self, fn, k: int, arrays):
+    def _run_shard(self, fn, k: int, arrays, queued=None):
         """Copy shard k's ``arrays`` to its device and run ``fn`` there
-        on the current stream."""
+        on the current stream. ``queued`` = (perf_counter_ns when the
+        work was queued, batch id, part tag) records the spans
+        ``engine.xfer_wait`` (queued -> started) and ``engine.xfer_run``
+        (started -> returned: the copies issued, the program's launches,
+        soft-NMS's host syncs)."""
         dev = self.devices[k]
+        t_start = now_ns()
         with torch.inference_mode():
-            return fn(*[self._to_device(a, dev) for a in arrays], shard=k)
+            out = fn(*[self._to_device(a, dev) for a in arrays], shard=k)
+        if queued is not None:
+            t_queued, bid, part = queued
+            STAGES.record("engine.xfer_wait", t_queued, t_start, bid=bid,
+                          part=part)
+            STAGES.record("engine.xfer_run", t_start, now_ns(), bid=bid,
+                          part=part)
+        return out
 
-    def _dispatch_async(self, fn, *arrays: np.ndarray):
+    def _dispatch_async(self, fn, *arrays: np.ndarray, part: str):
         """Queue (copy inputs to the device, run ``fn``) on the transfer
         worker; returns a Future of fn's (packed, wire) result. On a dp
         engine each shard's rows go to its own worker and device, and
-        the Future gathers them in row order."""
+        the Future gathers them in row order. ``part`` tags the work's
+        spans, with the caller's batch (profiling.current_batch)."""
+        queued = (now_ns(), profiling.current_batch(), part)
         n = self.n_devices
         if n == 1:
-            return self._xfers[0].submit(self._run_shard, fn, 0, arrays)
+            return self._xfers[0].submit(self._run_shard, fn, 0, arrays,
+                                         queued)
         return _Gathered([
             self._xfers[k].submit(
                 self._run_shard, fn, k,
-                [a[mesh_lib.shard_rows(len(a), n, k)] for a in arrays])
+                [a[mesh_lib.shard_rows(len(a), n, k)] for a in arrays],
+                queued)
             for k in range(n)])
 
     def _postprocess_tail(self, x: torch.Tensor, thresholds: torch.Tensor,
@@ -771,11 +790,12 @@ class DetectionEngine:
                     packed[: len(keep)] = packed[keep]
                     packed[len(keep):len(idxs)] = 0
                     packed[len(keep):len(idxs), -4:] = _THR_PAD_BYTES
+                tags.append(tag_fmt % layout)
                 res = self._dispatch_async(functools.partial(
-                    self._pipeline_sparse, layout=layout, tier=tier), packed)
+                    self._pipeline_sparse, layout=layout, tier=tier), packed,
+                    part=tags[-1])
                 parts.append((res, [idxs[k] for k in keep]))
                 counts[count_key] = counts.get(count_key, 0) + len(keep)
-                tags.append(tag_fmt % layout)
             pending = next_pending
         unresolved: List[int] = list(probe_failed)
         if pending or to_planes:
@@ -885,10 +905,10 @@ class DetectionEngine:
                 packed[len(keep):len(idxs), :yb] = 0
                 packed[len(keep):len(idxs), yb:yb + 2 * cw] = 128
                 packed[len(keep):len(idxs), -4:] = _THR_PAD_BYTES
-            res = self._dispatch_async(functools.partial(
-                self._pipeline_planes, layout=layout), packed)
-            parts.append((res, [idxs[k] for k in keep]))
             tags.append("planes:%d%d" % layout)
+            res = self._dispatch_async(functools.partial(
+                self._pipeline_planes, layout=layout), packed, part=tags[-1])
+            parts.append((res, [idxs[k] for k in keep]))
         return PlanesDispatch(
             parts, layouts=tuple(sorted(groups)), tags=tuple(tags),
             counts={"planes": n - len(failed) - len(probe_failed)},
@@ -958,7 +978,7 @@ class DetectionEngine:
 
         for fn, arrays, b, tag in jobs:
             t_job = time.time()
-            res = self._dispatch_async(fn, *arrays)
+            res = self._dispatch_async(fn, *arrays, part="warmup")
             self.fetch(res, b)        # the CLI's path: packed results
             self.fetch_wire(res, b)   # the server's: wire records
             self.warm_attribution[str(tag)] = time.time() - t_job
@@ -1045,7 +1065,8 @@ class DetectionEngine:
             batch[i] = img
         thr = np.full((b,), 2.0, np.float32)  # padded slots: empty result
         thr[:n] = np.asarray(thresholds, np.float32)
-        return self._dispatch_async(self._pipeline, batch, thr)
+        return self._dispatch_async(self._pipeline, batch, thr,
+                                    part="pixels")
 
     def detect_async_jpeg(self, jpegs: Sequence[bytes],
                           thresholds: Sequence[float]):
@@ -1087,7 +1108,7 @@ class DetectionEngine:
         thr = np.full((b,), 2.0, np.float32)  # padded slots: empty result
         thr[:n] = np.asarray(thresholds, np.float32)
         return self._dispatch_async(self._pipeline_coeffs, ycoef, cbcoef,
-                                    crcoef, qy, qc, thr)
+                                    crcoef, qy, qc, thr, part="coeffs")
 
     def fetch(self, res, n: int) -> List[List[ResultTuple]]:
         """Wait for a dispatch and convert its first n images to result

@@ -40,12 +40,38 @@ from typing import Dict, List, Optional, Tuple
 
 from fastdet_tpu_torch import wire
 from fastdet_tpu_torch.runtime.detector import Detector, DummyDetector
+from fastdet_tpu_torch.utils import profiling
 from fastdet_tpu_torch.utils.profiling import GLOBAL as STAGES
+from fastdet_tpu_torch.utils.profiling import now_ns
 from fastdet_tpu_torch.wire.messages import ResultTuple
 
 logger = logging.getLogger(__name__)
 
 SESSION_IDLE_TIMEOUT = 60.0   # seconds without datagrams before teardown
+
+
+class Request:
+    """One frame's request in a service: the frame, the future its
+    answer resolves, its id, ``bid``, the batch that answered it, and the
+    ``perf_counter_ns`` stamps its spans share: ``t0`` (parsed and
+    queued), ``t_form`` (its batch formed), ``t_slot`` (the batch's
+    in-flight slot held) and ``t_done`` (the batch's results on the
+    host)."""
+
+    __slots__ = ("jpeg", "threshold", "fut", "rid", "t0", "bid", "t_form",
+                 "t_slot", "t_done")
+
+    def __init__(self, jpeg: bytes, threshold: float, fut: asyncio.Future,
+                 t0: int):
+        self.jpeg = jpeg
+        self.threshold = threshold
+        self.fut = fut
+        self.rid = profiling.new_id()
+        self.t0 = t0
+        self.bid: Optional[int] = None
+        self.t_form: Optional[int] = None
+        self.t_slot: Optional[int] = None
+        self.t_done: Optional[int] = None
 
 
 class ModelService:
@@ -56,8 +82,13 @@ class ModelService:
     moment the engine is free — batch size adapts to load automatically.
     """
 
-    # Emit a stage-timing summary to the log every this many batches.
+    # Emit the counters and the mean of each term of a request's time
+    # in the server to the log every this many batches.
     STATS_EVERY = 500
+    #: the log line's labels of the terms a request's ``request_e2e``
+    #: splits into, in order: the spans ``service.queue_wait``,
+    #: ``service.pipeline_wait``, ``infer_batch``, ``session.respond``
+    PARTITION = ("queue", "pipeline", "infer", "respond")
     # Device batches in flight at once: while one batch's results travel
     # host-ward, the next batches are already decoded and dispatched —
     # without this the device idles for a full transfer between batches.
@@ -82,6 +113,10 @@ class ModelService:
         self.ingest: Dict[str, int] = {"sparse": 0, "planes": 0, "pixels": 0}
         self.fallbacks = 0
         self._fallback_logged = False
+        # The log line's request-weighted sums: ns of each PARTITION term
+        # and of request_e2e over the requests answered
+        self.answered = 0
+        self._term_ns = [0] * (len(self.PARTITION) + 1)
 
     def start(self) -> None:
         if self._task is None:
@@ -102,20 +137,27 @@ class ModelService:
                 pending.append(self.queue.get_nowait())
             except asyncio.QueueEmpty:
                 break
-        for _, _, fut in pending:
-            if not fut.done():
-                fut.cancel()
+        for req in pending:
+            if not req.fut.done():
+                req.fut.cancel()
+
+    def submit_request(self, jpeg: bytes, threshold: float,
+                       t0: int) -> Request:
+        """Enqueue one request parsed at ``t0`` (``perf_counter_ns``);
+        its future resolves with the frame's ALREADY-PACKED >BBhhhh wire
+        record blob (bytes — see DetectionEngine.fetch_wire;
+        DetectSession._respond just prepends the response header).
+        Plain-future (no coroutine/Task) entry point so the
+        per-datagram hot path costs one queue append, not a task
+        spawn."""
+        req = Request(jpeg, threshold,
+                      asyncio.get_running_loop().create_future(), t0)
+        self.queue.put_nowait(req)
+        return req
 
     def submit_nowait(self, jpeg: bytes, threshold: float) -> asyncio.Future:
-        """Enqueue one request; the returned future resolves with the
-        frame's ALREADY-PACKED >BBhhhh wire record blob (bytes — see
-        DetectionEngine.fetch_wire; DetectSession._respond just prepends
-        the response header). Plain-future (no coroutine/Task) entry
-        point so the per-datagram hot path costs one queue append, not
-        a task spawn."""
-        fut = asyncio.get_running_loop().create_future()
-        self.queue.put_nowait((jpeg, threshold, fut))
-        return fut
+        """:meth:`submit_request` from now; returns the future."""
+        return self.submit_request(jpeg, threshold, now_ns()).fut
 
     async def submit(self, jpeg: bytes, threshold: float) -> bytes:
         return await self.submit_nowait(jpeg, threshold)
@@ -180,10 +222,13 @@ class ModelService:
                 if fit is not None and len(batch) > fit > len(batch) // 2:
                     self._carry = batch[fit:]
                     batch = batch[:fit]
+            bid, t_form = profiling.new_id(), now_ns()
             # Bounded pipeline: block only when MAX_INFLIGHT batches are
             # already on the device; their results are fetched by
             # concurrent _finish tasks while we decode+dispatch the next.
             await sem.acquire()
+            t_slot = now_ns()
+            STAGES.record("service.pipeline_wait", t_form, t_slot, bid=bid)
 
             # Fast paths, fewest-bytes first: packed sparse coefficients
             # (host does only entropy decode; ~0.25-0.45 B/px), then
@@ -191,8 +236,6 @@ class ModelService:
             # all-or-nothing per batch (sparse internally reroutes
             # over-budget frames to planes and reports it in counts);
             # falls through to per-item pixel decode otherwise.
-            t_try = time.perf_counter()
-            futs_all = [it[2] for it in batch]
             res = None
             for path_name, dispatch in (
                 ("sparse", self.engine.detect_async_sparse),
@@ -200,9 +243,9 @@ class ModelService:
             ):
                 try:
                     res = await loop.run_in_executor(
-                        None, dispatch,
-                        [it[0] for it in batch],
-                        [it[1] for it in batch],
+                        None, profiling.call_in_batch, bid, dispatch,
+                        [it.jpeg for it in batch],
+                        [it.threshold for it in batch],
                     )
                 except Exception:
                     logger.exception(
@@ -213,27 +256,31 @@ class ModelService:
                 if res is not None:
                     break
             if res is not None:
-                STAGES.record("dispatch_batch",
-                              time.perf_counter() - t_try)
+                t_disp = now_ns()
+                STAGES.record("dispatch_batch", t_slot, t_disp, bid=bid)
                 for k, v in (getattr(res, "counts", None)
                              or {"planes": len(batch)}).items():
                     self.ingest[k] = self.ingest.get(k, 0) + v
                 unresolved = sorted(getattr(res, "unresolved", ()) or ())
                 if not unresolved:
-                    self._spawn_finish(res, futs_all, len(batch), t_try, sem)
+                    self._spawn_finish(res, batch, bid, t_form, t_slot, sem)
                     continue
                 # Partial dispatch: the decodable frames are already on
-                # the device — finish them (None futs are skipped), and
-                # run ONLY the undecodable frames down the host pixel
-                # path below as their own dispatch (own inflight slot).
+                # the device — finish them (None entries are skipped),
+                # and run ONLY the undecodable frames down the host pixel
+                # path below as a batch of their own (own inflight slot),
+                # formed when the dispatch returned.
                 uset = set(unresolved)
                 self._spawn_finish(
-                    res,
-                    [f if i not in uset else None
-                     for i, f in enumerate(futs_all)],
-                    len(batch), t_try, sem)
+                    res, [r if i not in uset else None
+                          for i, r in enumerate(batch)],
+                    bid, t_form, t_slot, sem)
                 batch = [batch[i] for i in unresolved]
+                bid, t_form = profiling.new_id(), t_disp
                 await sem.acquire()
+                t_slot = now_ns()
+                STAGES.record("service.pipeline_wait", t_form, t_slot,
+                              bid=bid)
             else:
                 self.fallbacks += 1
                 if not self._fallback_logged:
@@ -245,92 +292,111 @@ class ModelService:
                     )
 
             # Host JPEG decode on the executor (libjpeg releases the GIL).
-            def _decode(item):
-                jpeg_bytes, thr, _ = item
+            def _decode(req):
                 from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
 
-                img = jpeg_mod.decode_rgb(jpeg_bytes)
+                img = jpeg_mod.decode_rgb(req.jpeg)
                 if img.shape[:2] != (self.engine.spec.image_size,) * 2:
                     raise ValueError("invalid image size")
                 return img
 
-            imgs, thrs, futs, failed = [], [], [], []
-            t_dec = time.perf_counter()
             decoded = await asyncio.gather(
                 *[loop.run_in_executor(None, _decode, it) for it in batch],
                 return_exceptions=True,
             )
-            STAGES.record("decode_batch", time.perf_counter() - t_dec)
-            for (jpeg_bytes, thr, fut), img in zip(batch, decoded):
+            imgs, reqs = [], []
+            for req, img in zip(batch, decoded):
                 if isinstance(img, BaseException):
-                    failed.append((fut, img))
+                    if not req.fut.done():
+                        req.fut.set_exception(
+                            img if isinstance(img, Exception)
+                            else Exception(str(img)))
                 else:
                     imgs.append(img)
-                    thrs.append(thr)
-                    futs.append(fut)
-            for fut, err in failed:
-                if not fut.done():
-                    fut.set_exception(err if isinstance(err, Exception) else Exception(str(err)))
+                    reqs.append(req)
 
             if not imgs:
                 sem.release()
                 continue
             try:
-                t_inf = time.perf_counter()
-                res = self.engine.detect_async(imgs, thrs)
+                res = profiling.call_in_batch(
+                    bid, self.engine.detect_async, imgs,
+                    [it.threshold for it in reqs])
             except Exception as e:  # device-side failure: fail the batch
                 sem.release()
-                for fut in futs:
-                    if not fut.done():
-                        fut.set_exception(e)
+                for req in reqs:
+                    if not req.fut.done():
+                        req.fut.set_exception(e)
                 continue
             self.ingest["pixels"] += len(imgs)
-            self._spawn_finish(res, futs, len(imgs), t_inf, sem)
+            self._spawn_finish(res, reqs, bid, t_form, t_slot, sem)
 
-    def _spawn_finish(self, res, futs, n, t0, sem) -> None:
+    def _spawn_finish(self, res, reqs, bid, t_form, t_slot, sem) -> None:
+        """Batch ``bid`` (formed at ``t_form``, its slot held from
+        ``t_slot``) is on the device: its requests' queue waits end, and
+        a task fetches its results. A None entry of ``reqs`` is a row
+        this dispatch does not answer."""
+        for req in reqs:
+            if req is not None:
+                req.bid, req.t_form, req.t_slot = bid, t_form, t_slot
+                STAGES.record("service.queue_wait", req.t0, t_form,
+                              rid=req.rid, bid=bid)
         t = asyncio.get_running_loop().create_task(
-            self._finish(res, futs, n, t0, sem))
+            self._finish(res, reqs, bid, t_slot, sem))
         self._fetches.add(t)
         t.add_done_callback(self._fetches.discard)
 
-    async def _finish(self, res, futs, n, t0, sem) -> None:
+    async def _finish(self, res, reqs, bid, t_slot, sem) -> None:
         """Fetch one in-flight batch's results and resolve its futures.
         Runs concurrently with the worker dispatching later batches."""
         loop = asyncio.get_running_loop()
-        t_f = time.perf_counter()
+        t_f = now_ns()
         try:
             results = await loop.run_in_executor(
-                None, self.engine.fetch_wire, res, n)
-            STAGES.record("fetch_batch", time.perf_counter() - t_f)
+                None, self.engine.fetch_wire, res, len(reqs))
         except Exception as e:
-            for fut in futs:
-                if fut is not None and not fut.done():
-                    fut.set_exception(e)
+            for req in reqs:
+                if req is not None and not req.fut.done():
+                    req.fut.set_exception(e)
             return
         finally:
             sem.release()
-        t_done = time.perf_counter()
-        STAGES.record("infer_batch", t_done - t0)
+        t_done = now_ns()
+        STAGES.record("fetch_batch", t_f, t_done, bid=bid)
+        STAGES.record("infer_batch", t_slot, t_done, bid=bid)
         self.batches += 1
-        real = sum(1 for f in futs if f is not None)
+        real = sum(1 for r in reqs if r is not None)
         self.frames += real
         self.batch_hist[real] = self.batch_hist.get(real, 0) + 1
         self._maybe_log_stats()
-        # A None fut marks a frame this dispatch does not cover (an
-        # unresolved frame being retried down the pixel path).
-        for fut, r in zip(futs, results):
-            if fut is not None and not fut.done():
-                fut.set_result(r)
+        for req, r in zip(reqs, results):
+            if req is not None and not req.fut.done():
+                req.t_done = t_done
+                req.fut.set_result(r)
+
+    def account(self, req: Request, t_ans: int) -> None:
+        """Add request ``req``, answered at ``t_ans``, to the log line's
+        means: its PARTITION terms, which sum to its request_e2e."""
+        self.answered += 1
+        stamps = (req.t0, req.t_form, req.t_slot, req.t_done, t_ans)
+        for i in range(len(stamps) - 1):
+            self._term_ns[i] += stamps[i + 1] - stamps[i]
+        self._term_ns[-1] += t_ans - req.t0
 
     def _maybe_log_stats(self) -> None:
         if self.batches % self.STATS_EVERY:
             return
+        means = [ns / max(self.answered, 1) / 1e6 for ns in self._term_ns]
         logger.info(
             "service %s: batches=%d frames=%d avg_batch=%.2f ingest=%s "
-            "fallbacks=%d infer[%s]",
+            "fallbacks=%d request mean ms over %d answered: %s = %.2f "
+            "(request_e2e)",
             self.name, self.batches, self.frames,
             self.frames / max(self.batches, 1), self.ingest, self.fallbacks,
-            STAGES.summary_line("infer_batch"),
+            self.answered,
+            " + ".join(f"{label} {v:.2f}" for label, v
+                       in zip(self.PARTITION, means)),
+            means[-1],
         )
 
 
@@ -346,13 +412,16 @@ class DetectorService:
     def stop(self) -> None:
         pass
 
-    def submit_nowait(self, jpeg: bytes, threshold: float) -> asyncio.Future:
-        fut = asyncio.get_running_loop().create_future()
+    def submit_request(self, jpeg: bytes, threshold: float,
+                       t0: int) -> Request:
+        req = Request(jpeg, threshold,
+                      asyncio.get_running_loop().create_future(), t0)
         try:
-            fut.set_result(self.detector.perform(jpeg, threshold=threshold))
+            req.fut.set_result(self.detector.perform(jpeg,
+                                                     threshold=threshold))
         except Exception as e:
-            fut.set_exception(e)
-        return fut
+            req.fut.set_exception(e)
+        return req
 
     async def submit(self, jpeg: bytes, threshold: float) -> List[ResultTuple]:
         return self.detector.perform(jpeg, threshold=threshold)
@@ -376,6 +445,9 @@ class DetectSession(asyncio.DatagramProtocol):
         # batcher checks fut.done() before resolving, so a cancelled
         # request is simply skipped when its batch completes).
         self.pending: set = set()
+        # perf_counter_ns of the first datagram of the payload being
+        # reassembled (None between payloads)
+        self._t_first: Optional[int] = None
 
     # -- DatagramProtocol hooks -----------------------------------------
     def connection_made(self, transport) -> None:
@@ -391,34 +463,47 @@ class DetectSession(asyncio.DatagramProtocol):
         if addr != self.peer:
             return  # reference drops foreign datagrams (server.py:207)
         self.last_seen = time.monotonic()
+        if self._t_first is None:
+            self._t_first = now_ns()
         before = self.reasm.drops
         for payload in self.reasm.feed(data):
-            self._handle(payload)
+            t_done = now_ns()
+            rid = self._handle(payload, t_done)
+            STAGES.record("session.reassembly", self._t_first, t_done,
+                          rid=rid)
+        if self.reasm.idle:
+            self._t_first = None
         if self.reasm.drops != before:
             logger.info("recv: DROP (gap) session=%s", self.session_id.hex())
 
     # -- request handling ------------------------------------------------
-    def _handle(self, payload: bytes) -> None:
-        """Parse one request and enqueue it. Callback-based on purpose:
-        a Task per request (coroutine + two extra loop wakeups) was a
-        measurable fraction of the serving-vs-batched throughput gap on
-        a single-core host, and this path runs for every frame."""
-        req = wire.parse_request(payload)
-        if req is None:
-            return  # short/mismatched payloads silently dropped
+    def _handle(self, payload: bytes, t0: int) -> Optional[int]:
+        """Parse one request completed at ``t0`` (``perf_counter_ns``)
+        and enqueue it; returns its request id (None when the payload is
+        no request). Callback-based on purpose: a Task per request
+        (coroutine + two extra loop wakeups) was a measurable fraction
+        of the serving-vs-batched throughput gap on a single-core host,
+        and this path runs for every frame."""
+        msg = wire.parse_request(payload)
+        if msg is None:
+            return None  # short/mismatched payloads silently dropped
         if self.dbgout:
             try:
                 with open(self.dbgout, "wb") as fp:
-                    fp.write(req.jpeg)
+                    fp.write(msg.jpeg)
             except OSError:
                 pass
-        t0 = time.time()
-        fut = self.service.submit_nowait(req.jpeg, req.threshold)
-        self.pending.add(fut)
-        fut.add_done_callback(
-            lambda f, reqid=req.reqid, t0=t0: self._respond(reqid, t0, f))
+        req = self.service.submit_request(msg.jpeg, msg.threshold, t0)
+        self.pending.add(req.fut)
+        req.fut.add_done_callback(
+            lambda f, reqid=msg.reqid, req=req: self._respond(reqid, req))
+        return req.rid
 
-    def _respond(self, reqid: int, t0: float, fut: asyncio.Future) -> None:
+    def _respond(self, reqid: int, req: Request) -> None:
+        """Answer one request. ``msec`` and the spans ``request_e2e``
+        and ``session.respond`` end at one stamp, taken as the answer's
+        header is packed."""
+        fut = req.fut
         self.pending.discard(fut)
         if fut.cancelled():
             return
@@ -431,8 +516,13 @@ class DetectSession(asyncio.DatagramProtocol):
         else:
             logger.error("request %d failed", reqid, exc_info=err)
             results = []
-        msec = int((time.time() - t0) * 1000)
-        STAGES.record("request_e2e", time.time() - t0)
+        t_ans = now_ns()
+        msec = (t_ans - req.t0) // 1_000_000
+        STAGES.record("request_e2e", req.t0, t_ans, rid=req.rid, bid=req.bid)
+        if req.t_done is not None:
+            STAGES.record("session.respond", req.t_done, t_ans, rid=req.rid,
+                          bid=req.bid)
+            self.service.account(req, t_ans)
         if isinstance(results, (bytes, bytearray)):
             # ModelService futures carry pre-packed wire records
             # (engine.fetch_wire); plain Detector services carry tuples

@@ -133,6 +133,12 @@ class Reassembler:
         self.drops = 0          # number of detected gaps
         self.delivered = 0      # number of completed payloads
 
+    @property
+    def idle(self) -> bool:
+        """Between payloads: no chunk held and no cancelled payload
+        waiting for its marker."""
+        return self._buf is not None and not self._buf
+
     def _seqno_ok(self, seqno: int) -> bool:
         if self._expected is None:
             return True

@@ -9,7 +9,10 @@ convolutions sum in another order than XLA's (and the JAX engine also
 rewrites its stem to space-to-depth), so float results differ by ulps."""
 
 import asyncio
+import contextlib
+import logging
 import pathlib
+import re
 import struct
 import threading
 
@@ -19,7 +22,10 @@ import pytest
 from fastdet_tpu_torch.models import weights
 from fastdet_tpu_torch.runtime.client import DetectClient
 from fastdet_tpu_torch.runtime.engine import DetectionEngine
-from fastdet_tpu_torch.runtime.server import DetectionServer, build_services
+from fastdet_tpu_torch.runtime.server import (DetectionServer, ModelService,
+                                              build_services)
+from fastdet_tpu_torch.utils import profiling
+from fastdet_tpu_torch.utils.profiling import GLOBAL as STAGES
 
 TESTDATA = pathlib.Path(__file__).resolve().parent.parent / "testdata"
 FIXTURES = sorted(p.name for p in TESTDATA.glob("*.jpg"))
@@ -138,11 +144,10 @@ def test_int8_mode_serves(native_ready):
         eng.close()
 
 
-def test_server_answers_client_and_stops(port_engine, native_ready):
-    before = set(threading.enumerate())
-    services = build_services(["tiny:80:synthetic:tiny"], mode="f32",
-                              warmup=False, device="cpu", buckets=(1, 2))
-    eng = services["tiny"].engine
+@contextlib.contextmanager
+def _serving(services):
+    """A DetectionServer over ``services`` on 127.0.0.1 (a free port), on
+    a thread with its own event loop; shut down and joined on exit."""
     server = DetectionServer(services, port=0, host="127.0.0.1")
     state = {}
     ready = threading.Event()
@@ -168,24 +173,38 @@ def test_server_answers_client_and_stops(port_engine, native_ready):
     thread = threading.Thread(target=serve, daemon=True)
     thread.start()
     assert ready.wait(30)
-    names = ["scene2.jpg", "adv_ui.jpg", "scene3.jpg"]
-    client = DetectClient("127.0.0.1", server.bound_port, path="tiny")
     try:
-        client.open(timeout=10)
-        for i, n in enumerate(names):
-            client.request(i + 1, 0.3, (TESTDATA / n).read_bytes())
-        replies = [client.wait_response(i + 1, timeout=30)
-                   for i in range(len(names))]
+        yield server
     finally:
-        client.close()
         # one callback: after request_shutdown the serve task may end
         # and the loop close before a second call could be scheduled
         task = state["task"]
         state["loop"].call_soon_threadsafe(
             lambda: (server.request_shutdown(), task.cancel()))
         thread.join(30)
-        eng.close()
     assert not thread.is_alive()
+
+
+def test_server_answers_client_and_stops(port_engine, native_ready):
+    before = set(threading.enumerate())
+    services = build_services(["tiny:80:synthetic:tiny"], mode="f32",
+                              warmup=False, device="cpu", buckets=(1, 2))
+    eng = services["tiny"].engine
+    names = ["scene2.jpg", "adv_ui.jpg", "scene3.jpg"]
+    try:
+        with _serving(services) as server:
+            client = DetectClient("127.0.0.1", server.bound_port,
+                                  path="tiny")
+            try:
+                client.open(timeout=10)
+                for i, n in enumerate(names):
+                    client.request(i + 1, 0.3, (TESTDATA / n).read_bytes())
+                replies = [client.wait_response(i + 1, timeout=30)
+                           for i in range(len(names))]
+            finally:
+                client.close()
+    finally:
+        eng.close()
     # every thread the server, its engine and its executors started is gone
     assert [t for t in threading.enumerate() if t not in before] == []
     for n, (_, recs) in zip(names, replies):
@@ -193,3 +212,109 @@ def test_server_answers_client_and_stops(port_engine, native_ready):
         assert len(recs) == len(want[0]) > 0
         for r, w in zip(recs, want[0]):
             assert r[0] == w[0]
+
+
+#: spans of one request, and of one batch or one part of it
+REQUEST_SPANS = ("session.reassembly", "service.queue_wait",
+                 "session.respond", "request_e2e")
+BATCH_SPANS = ("service.pipeline_wait", "dispatch_batch", "engine.xfer_wait",
+               "engine.xfer_run", "fetch_batch", "infer_batch")
+
+
+def test_server_spans_partition_each_request(native_ready, monkeypatch,
+                                            caplog):
+    """Through the wire on the CPU engine: each answered request's spans
+    share their stamps, so queue_wait + pipeline_wait + infer_batch +
+    respond is its request_e2e, and ``msec`` is request_e2e truncated to
+    ms; every span carries its request or batch id, and every part run
+    on the transfer worker belongs to a batch that answered a request.
+    The service's periodic log line prints the terms' means over the
+    requests answered, which sum to request_e2e's."""
+    monkeypatch.setattr(ModelService, "STATS_EVERY", 1)
+    caplog.set_level(logging.INFO, logger="fastdet_tpu_torch.runtime.server")
+    services = build_services(["tiny:80:synthetic:tiny"], mode="f32",
+                              warmup=False, device="cpu", buckets=(1, 2))
+    eng = services["tiny"].engine
+    names = ["scene2.jpg", "adv_ui.jpg", "scene3.jpg", "scene1.jpg",
+             "adv_night.jpg"]
+    try:
+        with _serving(services) as server:
+            STAGES.reset()
+            client = DetectClient("127.0.0.1", server.bound_port,
+                                  path="tiny")
+            try:
+                client.open(timeout=10)
+                # three at once (batches of two and a carried one), then
+                # one at a time
+                for i, n in enumerate(names[:3]):
+                    client.request(i + 1, 0.3, (TESTDATA / n).read_bytes())
+                msecs = [client.wait_response(i + 1, timeout=30)[0]
+                         for i in range(3)]
+                for i, n in enumerate(names[3:], 4):
+                    client.request(i, 0.3, (TESTDATA / n).read_bytes())
+                    msecs.append(client.wait_response(i, timeout=30)[0])
+            finally:
+                client.close()
+            snap = STAGES.snapshot()
+    finally:
+        eng.close()
+    events = snap[profiling.EVENTS]
+    for e in events:
+        assert e["name"] in REQUEST_SPANS + BATCH_SPANS, e
+        assert e["start_us"] <= e["end_us"], e
+        if e["name"] in REQUEST_SPANS:
+            assert e["rid"] is not None, e
+        if e["name"] not in ("session.reassembly",):
+            assert e["bid"] is not None, e
+    by_rid = {}
+    for e in events:
+        if e["name"] in REQUEST_SPANS:
+            by_rid.setdefault(e["rid"], {})[e["name"]] = e
+    by_bid = {(e["name"], e["bid"]): e for e in events
+              if e["name"] in ("service.pipeline_wait", "infer_batch")}
+    # rids rise in the order one session's requests were reassembled
+    assert sorted(by_rid) == sorted(by_rid, key=lambda r: by_rid[r][
+        "session.reassembly"]["end_us"])
+    assert len(by_rid) == len(names) == snap["request_e2e"]["count"]
+    answered, terms = set(), {}
+    for rid, msec in zip(sorted(by_rid), msecs):
+        spans = by_rid[rid]
+        assert set(spans) == set(REQUEST_SPANS)
+        e2e, qw, rs = (spans["request_e2e"], spans["service.queue_wait"],
+                       spans["session.respond"])
+        bid = e2e["bid"]
+        assert qw["bid"] == rs["bid"] == bid
+        answered.add(bid)
+        pw = by_bid[("service.pipeline_wait", bid)]
+        ib = by_bid[("infer_batch", bid)]
+        chain = [e2e["start_us"], qw["start_us"], qw["end_us"],
+                 pw["start_us"], pw["end_us"], ib["start_us"],
+                 ib["end_us"], rs["start_us"], rs["end_us"], e2e["end_us"]]
+        assert chain[0] == chain[1] and chain[-2] == chain[-1]
+        assert chain[2:8:2] == chain[3:9:2]
+        # the reassembly ends at the stamp the request starts from
+        assert spans["session.reassembly"]["end_us"] == e2e["start_us"]
+        assert msec == int((e2e["end_us"] - e2e["start_us"]) // 1000)
+        terms[rid] = [s["end_us"] - s["start_us"] for s in (qw, pw, ib, rs)]
+    runs = [e for e in events if e["name"] == "engine.xfer_run"]
+    assert runs and {e["bid"] for e in runs} <= answered
+    assert {e["thread"] for e in runs} == {"fd-xfer0_0"}
+    assert all(e["part"] for e in runs)
+    assert snap["engine.xfer_run"]["count"] == snap[
+        "engine.xfer_wait"]["count"] >= snap["infer_batch"]["count"]
+    lines = [r.getMessage() for r in caplog.records
+             if "request mean ms" in r.getMessage()]
+    assert len(lines) == snap["infer_batch"]["count"]
+    m = re.search(r"request mean ms over (\d+) answered: queue ([0-9.]+) "
+                  r"\+ pipeline ([0-9.]+) \+ infer ([0-9.]+) \+ respond "
+                  r"([0-9.]+) = ([0-9.]+) \(request_e2e\)$", lines[-1])
+    assert m, lines[-1]
+    # the last line is logged as the last request's batch finishes: the
+    # requests before it are answered (the last two went one at a time)
+    n = int(m.group(1))
+    assert n == len(names) - 1
+    want = [sum(terms[r][i] for r in sorted(terms)[:n]) / n / 1e3
+            for i in range(4)]
+    got = [float(m.group(i)) for i in range(2, 7)]
+    assert got[:4] == pytest.approx(want, abs=0.006)
+    assert got[4] == pytest.approx(sum(want), abs=0.006)
