@@ -39,14 +39,13 @@ def _walk(cfg: dict):
             c = int(l["filters"])
         elif t == "maxpool":
             s = int(l["stride"])
-            if s != 1:
-                h, w = h // s, w // s
+            h, w = (h - 1) // s + 1, (w - 1) // s + 1
         elif t == "upsample":
             h, w = h * int(l["stride"]), w * int(l["stride"])
         elif t == "route":
             idx = [j if j >= 0 else i + j for j in l["layers"]]
             h, w = outs[idx[0]][0], outs[idx[0]][1]
-            c = sum(outs[j][2] for j in idx)
+            c = sum(outs[j][2] // int(l.get("groups", 1)) for j in idx)
         elif t not in ("shortcut", "yolo"):
             raise ValueError(f"layer {i}: unknown type {t!r}")
         outs.append((h, w, c))

@@ -2,9 +2,11 @@
 
 - Decode: Pillow (libjpeg's integer IDCT and fancy chroma upsampling).
 - Heads: :class:`.darknet.DarknetF32` in float32 with TF32 off.
-- Box decode (YOLOv3): centre ``((col + sigmoid(tx)) / W, (row +
-  sigmoid(ty)) / H)``, size ``anchor * exp(min(t, 15)) / 416`` (the clamp
-  only guards against overflow), confidence ``sigmoid(obj) *
+- Box decode (YOLOv3, with YOLOv4's grid sensitivity): centre ``((col
+  + (sxy * sigmoid(tx) - (sxy - 1) / 2)) / W, (row + ...) / H)``, where
+  ``sxy`` is the ``yolo`` layer's ``scale_x_y`` (1 where it has none, as
+  in YOLOv3), size ``anchor * exp(min(t, 15)) / 416`` (the clamp only
+  guards against overflow), confidence ``sigmoid(obj) *
   sigmoid(max class logit)``, class ``argmax + 1``, box as normalised
   top-left ``(x, y, w, h)``. Candidates in head order, row-major, anchor
   minor.
@@ -41,9 +43,10 @@ def _candidates(heads: List[torch.Tensor], cfg: dict):
     over every head, reference order."""
     size = float(cfg["width"])
     anchors = cfg["anchors"]
-    masks = [l["mask"] for l in cfg["layers"] if l["type"] == "yolo"]
+    yolos = [l for l in cfg["layers"] if l["type"] == "yolo"]
     boxes, scores, klass = [], [], []
-    for h, mask in zip(heads, masks):
+    for h, l in zip(heads, yolos):
+        mask, sxy = l["mask"], float(l.get("scale_x_y", 1.0))
         b, rows, cols, na, _ = h.shape
         dev = h.device
         a = torch.tensor([anchors[m] for m in mask], dtype=torch.float32,
@@ -52,8 +55,8 @@ def _candidates(heads: List[torch.Tensor], cfg: dict):
             :, None, None]
         gx = torch.arange(cols, dtype=torch.float32, device=dev)[
             None, :, None]
-        cx = (gx + torch.sigmoid(h[..., 0])) / cols
-        cy = (gy + torch.sigmoid(h[..., 1])) / rows
+        cx = (gx + (torch.sigmoid(h[..., 0]) * sxy - (sxy - 1) / 2)) / cols
+        cy = (gy + (torch.sigmoid(h[..., 1]) * sxy - (sxy - 1) / 2)) / rows
         bw = a[:, 0] * torch.exp(torch.clamp(h[..., 2], max=15.0)) / size
         bh = a[:, 1] * torch.exp(torch.clamp(h[..., 3], max=15.0)) / size
         cmax, cidx = torch.max(h[..., 5:], dim=-1)
