@@ -26,7 +26,10 @@ Drives the port's main path end to end and checks every kernel on it:
      planes tiers and launch both kernels; the net's input on each
      sparse dispatch must equal the same rows through reconstruct_plain
      and the DC lane as a separate pass; an f32 engine on the card is
-     held against the same engine on the CPU on three fixtures;
+     held against the same engine on the CPU on three fixtures; the
+     batch again through the captured CUDA graphs and eagerly: the
+     launches a part and the share of parts replayed printed, every
+     part replayed, the records of both equal to the first run's;
   5. over the wire: a DetectionServer on 127.0.0.1 answers the seven
      fixtures sent by the port's DetectClient; each response must match
      the engine's own records. Launch counts are zeroed just before and
@@ -788,33 +791,36 @@ def _sparse_input_check(torch, eng, jpegs):
     """One engine batch of ``jpegs``: the net's input on each sparse
     dispatch (kernel B1 writing the DC column) against the same packed
     rows through reconstruct_plain + _with_dc (the DC lane as a separate
-    pass). Returns (max |diff|, sparse dispatches)."""
+    pass). The batch runs eagerly (the captured graphs set aside), so
+    that the input can be read. Returns (max |diff|, sparse dispatches)."""
     from fastdet_tpu_torch.ops import sparse_ingest as si
 
     seen = []
-    pipe, tail = eng._pipeline_sparse, eng._postprocess_tail
+    pipe, select = eng._pipeline_sparse, eng._select
 
     def capture_pipe(packed, layout=(2, 2), tier="std", shard=0):
         seen.append({"args": (packed.clone(), layout, tier)})
         return pipe(packed, layout, tier, shard)
 
-    def capture_tail(x, thresholds, shard=0):
+    def capture_select(x, thresholds, shard=0):
         if seen and "x" not in seen[-1]:
             seen[-1]["x"] = x.clone()
-        return tail(x, thresholds, shard)
+        return select(x, thresholds, shard)
 
     def plain(offs, ms, vals, esc8, esc16, sentinel, dc=None):
         return si._with_dc(
             si.reconstruct_plain(offs, ms, vals, esc8, esc16, sentinel), dc)
 
-    eng._pipeline_sparse, eng._postprocess_tail = capture_pipe, capture_tail
+    eng._pipeline_sparse, eng._select = capture_pipe, capture_select
+    captured, eng._graphs = eng._graphs, [{} for _ in eng._graphs]
     try:
         eng.fetch_wire(eng.detect_async_sparse(jpegs, [THR] * len(jpegs)),
                        len(jpegs))
     finally:
-        del eng._pipeline_sparse, eng._postprocess_tail
+        del eng._pipeline_sparse, eng._select
+        eng._graphs = captured
     kernel, si.reconstruct = si.reconstruct, plain
-    eng._postprocess_tail = lambda x, thr, shard=0: x
+    eng._select = lambda x, thr, shard=0: x
     try:
         diff = 0.0
         for d in seen:
@@ -822,9 +828,51 @@ def _sparse_input_check(torch, eng, jpegs):
             diff = max(diff, float((d["x"] - want).abs().max().item()))
     finally:
         si.reconstruct = kernel
-        del eng._postprocess_tail
+        del eng._select
     torch.cuda.synchronize()
     return diff, len(seen)
+
+
+def _graph_check(torch, eng, jpegs):
+    """One engine batch of ``jpegs`` through the captured CUDA graphs and
+    again eagerly (the graphs set aside): per run its wire records, the
+    kernel and graph launches a part (the profiler's launch calls, of
+    any thread), the share of parts replayed and the parts. None for the
+    launches when the profiler is unavailable."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastdet_tpu_torch.utils.profiling import GLOBAL as STAGES
+
+    out = {}
+    for run in ("graphs", "eager"):
+        captured = eng._graphs
+        if run == "eager":
+            eng._graphs = [{} for _ in captured]
+        try:
+            eng._tier_hint.clear()
+            torch.cuda.synchronize()
+            STAGES.reset()
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    wire = eng.fetch_wire(eng.detect_async_sparse(
+                        jpegs, [THR] * len(jpegs)), len(jpegs))
+                    torch.cuda.synchronize()
+                launches = sum(ev.count for ev in prof.key_averages()
+                               if "LaunchKernel" in ev.key
+                               or "GraphLaunch" in ev.key)
+            except (RuntimeError, AssertionError):
+                wire = eng.fetch_wire(eng.detect_async_sparse(
+                    jpegs, [THR] * len(jpegs)), len(jpegs))
+                launches = None
+            snap = STAGES.snapshot()
+        finally:
+            eng._graphs = captured
+        parts = snap["engine.xfer_run"]["count"]
+        replays = (snap.get("engine.graph_replay") or {}).get("count", 0)
+        out[run] = (wire, None if launches is None else launches / parts,
+                    100.0 * replays / parts, parts)
+    return out
 
 
 def phase_engine(torch, fixtures, services):
@@ -871,6 +919,16 @@ def phase_engine(torch, fixtures, services):
     eng._tier_hint.clear()
     _where_time_goes(torch, lambda: eng.fetch_wire(eng.detect_async_sparse(
         jpegs, [THR] * len(jpegs)), len(jpegs)))
+    eng._tier_hint.clear()
+    graphed = _graph_check(torch, eng, jpegs)
+    for run, (_, per_part, share, parts) in graphed.items():
+        say(f"[4] {run}: {parts} parts, "
+            f"{'not measured' if per_part is None else f'{per_part:.1f}'} "
+            f"launches a part, {share:.1f} % of the parts replayed")
+    expect(graphed["graphs"][0] == graphed["eager"][0] == wire,
+           "the replayed parts' records differ from the eager run's")
+    expect(graphed["graphs"][2] == 100.0 and graphed["eager"][2] == 0.0,
+           f"replay shares {graphed['graphs'][2]} / {graphed['eager'][2]}")
     eng._tier_hint.clear()
 
     # f32 on the card against f32 on the CPU (true f32 on both: TF32 off)

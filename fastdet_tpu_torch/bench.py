@@ -267,8 +267,9 @@ def layout_groups(engine, jpegs):
 
 def stage_prepacked(engine, jpegs, thr_all):
     """Stage the frames once on the std tier: (layout, frame indices,
-    packed rows, thresholds, the engine's sparse program for them), or
-    None when they do not ride one std-tier sparse group."""
+    packed rows, thresholds, the prefix of the engine's sparse program
+    for them: run it with ``engine._run_program``), or None when they do
+    not ride one std-tier sparse group."""
     staged, jobs = engine._stage_sparse(jpegs, thr_all,
                                         layout_groups(engine, jpegs), "std")
     overflow, _ = engine._run_sparse_jobs(jobs)
@@ -281,10 +282,13 @@ def stage_prepacked(engine, jpegs, thr_all):
 
 def submit_prepacked(engine, fn, packed, idxs):
     """Dispatch staged rows through the engine's transfer worker, as
-    detect_async_sparse does; fetch with ``fetch`` / ``fetch_wire``."""
+    detect_async_sparse does (the program's CUDA graph replayed where
+    warmup() captured it); fetch with ``fetch`` / ``fetch_wire``."""
     from fastdet_tpu_torch.runtime.engine import PlanesDispatch
 
-    res = engine._dispatch_async(fn, packed, part="prepacked")
+    res = engine._dispatch_async(
+        fn, packed, part="prepacked",
+        key=("sparse", fn.keywords["layout"], "std", len(packed)))
     return PlanesDispatch([(res, list(idxs))], counts={"sparse": len(idxs)})
 
 
@@ -640,6 +644,9 @@ def bench_all(frames: int | None = None, out_dir: str = OUT_DIR,
                               **kw)
         engines[key] = eng
         eng.warmup()
+        # the background warm-up captures CUDA graphs, and no thread may
+        # synchronize the whole device meanwhile (the link probes do)
+        eng.wait_warm()
         return eng
 
     def p50_fps(eng, frames_list, n):
@@ -698,7 +705,6 @@ def bench_all(frames: int | None = None, out_dir: str = OUT_DIR,
         eng8 = mk_engine("full80_int8", "full", 80, INT8_BUCKETS,
                          record=False, mode="int8",
                          calibration_images=bench_calibration())
-        eng8.wait_warm()
         with row("full80_batched_int8_fps"):
             detail["full80_batched_int8_fps"] = batched_fps(eng8, frames)
 
@@ -715,7 +721,6 @@ def bench_all(frames: int | None = None, out_dir: str = OUT_DIR,
                                    ("rsu9", "full", 9)):
             ek = mk_engine(key + "_int8", arch, classes, INT8_BUCKETS,
                            mode="int8", calibration_images=bench_calibration())
-            ek.wait_warm()
             with row(key + "_batched_int8_fps"):
                 detail[key + "_batched_int8_fps"] = batched_fps(ek, frames)
             engines.pop(key + "_int8").close()

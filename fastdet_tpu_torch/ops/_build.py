@@ -18,6 +18,7 @@ raises :class:`BuildError`; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -25,7 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, Iterator, List, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -174,3 +175,30 @@ def check(name: str, rc: int) -> None:
     if rc != 0:
         msg = kernels().fd_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({rc})")
+
+
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[Callable[[int], None], int]]:
+    """While a CUDA graph is captured on this thread: yields a tally
+    {counter: launches} that :func:`captured` fills in place of the
+    kernels' launch counters. A captured launch runs at each replay, and
+    the replay adds the tally to the counters (``counter(n)``)."""
+    tally: Dict[Callable[[int], None], int] = {}
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = None
+
+
+def captured(counter: Callable[[int], None]) -> bool:
+    """Tally one launch for ``counter`` if this thread is capturing (see
+    :func:`capturing`); False when the launch runs now."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is None:
+        return False
+    tally[counter] = tally.get(counter, 0) + 1
+    return True

@@ -52,11 +52,27 @@ def decode_head_components(head: torch.Tensor, anchors: torch.Tensor,
     return comps, scores, (klass + 1).to(torch.int32)
 
 
+_ANCHORS: dict = {}
+
+
+def head_anchors(spec: ModelSpec, device: torch.device):
+    """Each scale's (A, 2) float32 anchors on ``device``, made once per
+    (anchors, device): a forward uploads nothing from the host, so a CUDA
+    graph can capture it."""
+    key = (spec.anchors, device)
+    out = _ANCHORS.get(key)
+    if out is None:
+        # the first writer wins, so a captured graph's anchors stay alive
+        out = _ANCHORS.setdefault(key, [
+            torch.tensor(a, dtype=torch.float32, device=device)
+            for a in spec.anchors])
+    return out
+
+
 def decode_all_components(heads: Sequence[torch.Tensor], spec: ModelSpec):
     """Decode and concatenate every scale, reference order."""
     cs, ss, ks = [], [], []
-    for head, anchors in zip(heads, spec.anchors):
-        a = torch.tensor(anchors, dtype=torch.float32, device=head.device)
+    for head, a in zip(heads, head_anchors(spec, heads[0].device)):
         c, s, k = decode_head_components(head, a, spec.num_classes,
                                          spec.image_size)
         cs.append(c)

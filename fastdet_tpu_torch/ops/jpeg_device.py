@@ -63,8 +63,8 @@ def _const(name: str, device: torch.device) -> torch.Tensor:
             arr = NAT2ZZ.astype(np.int64)
         else:
             raise KeyError(name)
-        t = torch.from_numpy(arr).to(device)
-        _CONSTS[key] = t
+        # the first writer wins, so a captured graph's constant stays alive
+        t = _CONSTS.setdefault(key, torch.from_numpy(arr).to(device))
     return t
 
 

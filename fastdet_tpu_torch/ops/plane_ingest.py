@@ -22,9 +22,17 @@ import torch
 from fastdet_tpu_torch.ops import _build
 from fastdet_tpu_torch.ops import jpeg_device as jd
 
-#: launches of the CUDA kernel (the plain version does not count)
+#: launches of the CUDA kernel (the plain version does not count; a
+#: launch captured into a CUDA graph counts at each replay)
 LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()
+
+
+def add_launches(n: int) -> None:
+    """Count ``n`` launches of the kernel."""
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += n
 
 
 def plane_ingest_plain(y: torch.Tensor, cb: torch.Tensor,
@@ -43,7 +51,6 @@ def plane_ingest_batch(y: torch.Tensor, cb: torch.Tensor,
     per frame (any batch stride; each plane contiguous within a frame,
     Cb and Cr with one batch stride). CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
-    global LAUNCHES
     if all(t.device.type == "cpu" for t in (y, cb, cr)):
         return plane_ingest_plain(y, cb, cr)
     dev = y.device
@@ -71,6 +78,6 @@ def plane_ingest_batch(y: torch.Tensor, cb: torch.Tensor,
             y.data_ptr(), cb.data_ptr(), cr.data_ptr(), out.data_ptr(),
             b, h, w, y.stride(0), cb.stride(0), stream)
     _build.check("fd_plane_ingest", rc)
-    with _LAUNCHES_LOCK:
-        LAUNCHES += 1
+    if not _build.captured(add_launches):
+        add_launches(1)
     return out

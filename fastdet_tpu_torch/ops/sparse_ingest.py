@@ -53,9 +53,18 @@ from fastdet_tpu_torch.ops import jpeg_device as jd
 EW1 = 32   # level-1 escapes per block (fd_jpeg.cpp kMaxEsc8PerBlock)
 EW2 = 16   # level-2 escapes per block (fd_jpeg.cpp kMaxEsc16PerBlock)
 
-#: launches of the CUDA kernel (the plain version does not count)
+#: launches of the CUDA kernel (the plain version does not count; a
+#: launch captured into a CUDA graph counts at each replay)
 LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()
+
+
+def add_launches(n: int) -> None:
+    """Count ``n`` launches of the kernel."""
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += n
+
 
 #: the kernel's tile sizes (blocks per CTA), one instance each in
 #: csrc/sparse_ingest.cu
@@ -67,9 +76,10 @@ _POPCOUNT = {}
 def _popcount_u8(x: torch.Tensor) -> torch.Tensor:
     lut = _POPCOUNT.get(x.device)
     if lut is None:
-        lut = torch.tensor([bin(i).count("1") for i in range(256)],
-                           dtype=torch.int64, device=x.device)
-        _POPCOUNT[x.device] = lut
+        # the first writer wins, so a captured graph's table stays alive
+        lut = _POPCOUNT.setdefault(x.device, torch.tensor(
+            [bin(i).count("1") for i in range(256)], dtype=torch.int64,
+            device=x.device))
     return lut[x.to(torch.int64)]
 
 
@@ -173,7 +183,6 @@ def reconstruct(offs: torch.Tensor, maskstream: torch.Tensor,
     position 0. The kernel's tile is :func:`tile`'s. CPU tensors take
     :func:`reconstruct_plain`; CUDA tensors launch the CUDA kernel or
     raise."""
-    global LAUNCHES
     b, four, nb1 = offs.shape
     if dc is not None and (dc.dtype != torch.int32
                            or tuple(dc.shape) != (b, nb1 - 1)):
@@ -215,8 +224,8 @@ def reconstruct(offs: torch.Tensor, maskstream: torch.Tensor,
             b, nb, maskstream.shape[1], vals.shape[1], esc8.shape[1],
             esc16.shape[1], sentinel, bt, stream)
     _build.check("fd_sparse_reconstruct", rc)
-    with _LAUNCHES_LOCK:
-        LAUNCHES += 1
+    if not _build.captured(add_launches):
+        add_launches(1)
     return out
 
 

@@ -45,6 +45,12 @@ Engine properties kept from the JAX engine:
   detect_async_jpeg (host entropy decode into int16 coefficients, device
   dequant + IDCT + colour: the coefficient path) and detect_async (host
   pixels).
+
+- **CUDA graphs.** A part's prefix up to the top-K candidates makes no
+  host sync; warmup() captures it for each program it warms, per shard,
+  and the transfer worker replays it for every later part of that
+  program (runtime/graphs.py). soft-NMS and the packing stay eager; a
+  program never warmed, and every CPU tensor, runs eagerly.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from fastdet_tpu_torch.models.yolov3 import ModelSpec, YoloNet
 from fastdet_tpu_torch.ops import jpeg_device, nms, plane_ingest, postprocess
 from fastdet_tpu_torch.ops import sparse_ingest
 from fastdet_tpu_torch.parallel import mesh as mesh_lib
+from fastdet_tpu_torch.runtime import graphs
 from fastdet_tpu_torch.runtime import jpeg as jpeg_mod
 from fastdet_tpu_torch.runtime import native_jpeg
 from fastdet_tpu_torch.utils import profiling
@@ -437,6 +444,13 @@ class DetectionEngine:
         #: engine's tags: ("pixels", b), ("sparse", layout, tier, b),
         #: ("planes", layout, b)
         self.warm_attribution: Dict[str, float] = {}
+        #: per shard, {program key: its captured prefix}; the capturer
+        #: is CUDA's on a card and None on the CPU
+        self._graphs: List[Dict[Any, graphs.PrefixGraph]] = [
+            {} for _ in self.devices]
+        self._capturer: Optional[graphs.Capturer] = (
+            graphs.CudaCapturer()
+            if all(d.type == "cuda" for d in self.devices) else None)
 
     @property
     def net(self):
@@ -464,51 +478,95 @@ class DetectionEngine:
             return t.pin_memory().to(dev, non_blocking=True)
         return t
 
-    def _run_shard(self, fn, k: int, arrays, queued=None):
-        """Copy shard k's ``arrays`` to its device and run ``fn`` there
-        on the current stream. ``queued`` = (perf_counter_ns when the
+    def _run_shard(self, fn, k: int, arrays, queued=None, key=None,
+                   capture: bool = False):
+        """Run shard k's part on its device, on the current stream: the
+        prefix ``fn`` (ingest -> net -> top-K), then the eager tail
+        (soft-NMS, packing). The prefix replays ``key``'s captured graph
+        of the shard when there is one; else ``arrays`` are copied to the
+        device and ``fn`` runs, and with ``capture`` the prefix is then
+        captured under ``key``. ``queued`` = (perf_counter_ns when the
         work was queued, batch id, part tag) records the spans
-        ``engine.xfer_wait`` (queued -> started) and ``engine.xfer_run``
+        ``engine.xfer_wait`` (queued -> started), ``engine.xfer_run``
         (started -> returned: the copies issued, the program's launches,
-        soft-NMS's host syncs)."""
+        soft-NMS's host syncs) and, for a replayed prefix,
+        ``engine.graph_replay`` (started -> the replay launched)."""
         dev = self.devices[k]
         t_start = now_ns()
+        graph = self._graphs[k].get(key)
+        t_replayed = None
         with torch.inference_mode():
-            out = fn(*[self._to_device(a, dev) for a in arrays], shard=k)
+            if graph is not None:
+                sel = graph.run(arrays)
+                t_replayed = now_ns()
+            else:
+                inputs = [self._to_device(a, dev) for a in arrays]
+                sel = fn(*inputs, shard=k)
+            out = self._soft_nms_tail(*sel)
+            if capture and graph is None and self._capturer is not None:
+                self._capture(k, key, fn, inputs)
         if queued is not None:
             t_queued, bid, part = queued
             STAGES.record("engine.xfer_wait", t_queued, t_start, bid=bid,
                           part=part)
             STAGES.record("engine.xfer_run", t_start, now_ns(), bid=bid,
                           part=part)
+            if t_replayed is not None:
+                STAGES.record("engine.graph_replay", t_start, t_replayed,
+                              bid=bid, part=part)
         return out
 
-    def _dispatch_async(self, fn, *arrays: np.ndarray, part: str):
-        """Queue (copy inputs to the device, run ``fn``) on the transfer
-        worker; returns a Future of fn's (packed, wire) result. On a dp
-        engine each shard's rows go to its own worker and device, and
-        the Future gathers them in row order. ``part`` tags the work's
-        spans, with the caller's batch (profiling.current_batch)."""
+    def _capture(self, k: int, key, fn, inputs) -> None:
+        """Capture shard k's prefix ``fn`` of program ``key`` on copies of
+        its warm run's device ``inputs``. A capture that fails leaves the
+        program eager."""
+        try:
+            self._graphs[k][key] = graphs.capture(
+                self._capturer, functools.partial(fn, shard=k), inputs,
+                self.devices[k], k)
+        except Exception:
+            logger.exception("capture of %s on shard %d failed; it runs "
+                             "eagerly", key, k)
+
+    def _run_program(self, fn, *inputs: torch.Tensor, shard: int = 0):
+        """The prefix ``fn`` on device ``inputs`` and the tail, eagerly on
+        the calling thread: the program's (packed, wire) result."""
+        return self._soft_nms_tail(*fn(*inputs, shard=shard))
+
+    def _dispatch_async(self, fn, *arrays: np.ndarray, part: str, key=None,
+                        capture: bool = False):
+        """Queue (copy inputs to the device, run the prefix ``fn`` and the
+        tail) on the transfer worker; returns a Future of the (packed,
+        wire) result. ``key`` names the program (see :meth:`_run_shard`).
+        On a dp engine each shard's rows go to its own worker and device,
+        and the Future gathers them in row order. ``part`` tags the
+        work's spans, with the caller's batch (profiling.current_batch)."""
         queued = (now_ns(), profiling.current_batch(), part)
         n = self.n_devices
         if n == 1:
             return self._xfers[0].submit(self._run_shard, fn, 0, arrays,
-                                         queued)
+                                         queued, key, capture)
         return _Gathered([
             self._xfers[k].submit(
                 self._run_shard, fn, k,
                 [a[mesh_lib.shard_rows(len(a), n, k)] for a in arrays],
-                queued)
+                queued, key, capture)
             for k in range(n)])
 
-    def _postprocess_tail(self, x: torch.Tensor, thresholds: torch.Tensor,
-                          shard: int = 0):
-        """(B, H, W, 3) f32 frames -> (packed (B, max_det, 7) f32
-        [x, y, w, h, score, klass, valid], wire (B, max_det*10+4) u8),
-        through shard ``shard``'s replica of the net."""
+    def _select(self, x: torch.Tensor, thresholds: torch.Tensor,
+                shard: int = 0):
+        """(B, H, W, 3) f32 frames -> the prefix's end: the top-K
+        candidates (boxes, scores, klass) and the (B,) thresholds,
+        through shard ``shard``'s replica of the net. No host sync."""
         heads = self.nets[shard](x)
-        sel_b, sel_s, sel_k = postprocess.select_batch(
-            heads, self.spec, thresholds, self.max_candidates)
+        return postprocess.select_batch(
+            heads, self.spec, thresholds, self.max_candidates) + (
+            thresholds,)
+
+    def _soft_nms_tail(self, sel_b, sel_s, sel_k, thresholds):
+        """The prefix's candidates -> (packed (B, max_det, 7) f32
+        [x, y, w, h, score, klass, valid], wire (B, max_det*10+4) u8),
+        fresh tensors: soft-NMS syncs with the host once a trip."""
         res = nms.soft_nms_batch(sel_b, sel_s, sel_k, thresholds,
                                  self.max_det)
         packed = torch.cat([
@@ -521,7 +579,7 @@ class DetectionEngine:
     def _pipeline(self, images_u8: torch.Tensor, thresholds: torch.Tensor,
                   shard: int = 0):
         x = images_u8.to(torch.float32) * (1.0 / 255.0)
-        return self._postprocess_tail(x, thresholds, shard)
+        return self._select(x, thresholds, shard)
 
     @staticmethod
     def _row_thresholds(packed: torch.Tensor, start: int) -> torch.Tensor:
@@ -536,7 +594,7 @@ class DetectionEngine:
         size = self.spec.image_size
         x = jpeg_device.decode420_batch(ycoef, cbcoef, crcoef, qy, qc,
                                         size, size)
-        return self._postprocess_tail(x, thresholds, shard)
+        return self._select(x, thresholds, shard)
 
     def _pipeline_planes(self, packed: torch.Tensor, layout=(2, 2),
                          shard: int = 0):
@@ -558,7 +616,7 @@ class DetectionEngine:
                 y.to(torch.float32),
                 jpeg_device.upsample_chroma(cb, hs, vs),
                 jpeg_device.upsample_chroma(cr, hs, vs))
-        return self._postprocess_tail(x, thresholds, shard)
+        return self._select(x, thresholds, shard)
 
     # ------------------------------------------------------------------
     # Packed sparse coefficient ingest (the fewest-bytes path)
@@ -599,7 +657,7 @@ class DetectionEngine:
         q = qb[..., 0] + qb[..., 1] * 256.0
         x = jpeg_device.coeffs_to_rgb01(coeff, q[:, 0], q[:, 1], q[:, 2],
                                         size, size, hs, vs)
-        return self._postprocess_tail(
+        return self._select(
             x, self._row_thresholds(packed, qstart + 384), shard)
 
     def _stage_sparse(self, jpegs, thr_all, groups, tier):
@@ -793,7 +851,8 @@ class DetectionEngine:
                 tags.append(tag_fmt % layout)
                 res = self._dispatch_async(functools.partial(
                     self._pipeline_sparse, layout=layout, tier=tier), packed,
-                    part=tags[-1])
+                    part=tags[-1],
+                    key=("sparse", layout, tier, packed.shape[0]))
                 parts.append((res, [idxs[k] for k in keep]))
                 counts[count_key] = counts.get(count_key, 0) + len(keep)
             pending = next_pending
@@ -907,7 +966,8 @@ class DetectionEngine:
                 packed[len(keep):len(idxs), -4:] = _THR_PAD_BYTES
             tags.append("planes:%d%d" % layout)
             res = self._dispatch_async(functools.partial(
-                self._pipeline_planes, layout=layout), packed, part=tags[-1])
+                self._pipeline_planes, layout=layout), packed, part=tags[-1],
+                key=("planes", layout, packed.shape[0]))
             parts.append((res, [idxs[k] for k in keep]))
         return PlanesDispatch(
             parts, layouts=tuple(sorted(groups)), tags=tuple(tags),
@@ -924,7 +984,8 @@ class DetectionEngine:
                fallbacks: bool = True) -> float:
         """Run each serving program once per bucket on neutral inputs
         (builds the kernels, lets cuDNN pick its algorithms and the
-        allocator grow); returns the seconds until the first-choice
+        allocator grow), then, on a card, capture its prefix's CUDA graph
+        in the same job; returns the seconds until the first-choice
         programs are warm.
 
         As the JAX engine splits its compiles: the first-choice programs
@@ -935,6 +996,9 @@ class DetectionEngine:
         work queues behind them. Until a fallback is warm the routers
         send its frames down the ladder that is (dense -> planes ->
         pixels). FASTDET_LAZY_WARM=0 runs everything before returning.
+        While the background thread captures, no thread may synchronize
+        the whole device (``torch.cuda.synchronize``; a stream's sync is
+        fine): call wait_warm() first.
         ``fallbacks=False`` leaves the fallbacks out (they run cold on
         first use): one-shot CLIs would otherwise warm programs they
         will likely never run. ``buckets`` are rounded to the engine's."""
@@ -978,7 +1042,8 @@ class DetectionEngine:
 
         for fn, arrays, b, tag in jobs:
             t_job = time.time()
-            res = self._dispatch_async(fn, *arrays, part="warmup")
+            res = self._dispatch_async(fn, *arrays, part="warmup", key=tag,
+                                       capture=True)
             self.fetch(res, b)        # the CLI's path: packed results
             self.fetch_wire(res, b)   # the server's: wire records
             self.warm_attribution[str(tag)] = time.time() - t_job
@@ -1013,7 +1078,8 @@ class DetectionEngine:
                            if streams[k] is not None
                            else contextlib.nullcontext())
                     with ctx:
-                        for t in self._run_shard(fn, k, rows):
+                        for t in self._run_shard(fn, k, rows, key=tag,
+                                                 capture=True):
                             t.cpu()
                 self.warm_attribution[str(tag)] = time.time() - t_job
             except Exception:  # the program then runs cold on first use
@@ -1066,7 +1132,7 @@ class DetectionEngine:
         thr = np.full((b,), 2.0, np.float32)  # padded slots: empty result
         thr[:n] = np.asarray(thresholds, np.float32)
         return self._dispatch_async(self._pipeline, batch, thr,
-                                    part="pixels")
+                                    part="pixels", key=("pixels", b))
 
     def detect_async_jpeg(self, jpegs: Sequence[bytes],
                           thresholds: Sequence[float]):

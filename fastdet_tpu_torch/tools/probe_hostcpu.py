@@ -43,7 +43,7 @@ def build_engine(batch: int, device):
 
 def stage_prepacked(eng, jpegs, thr_all):
     """``bench.stage_prepacked``, which the frames must fit: (layout,
-    idxs, packed rows, thresholds, the engine's sparse program)."""
+    idxs, packed rows, thresholds, the engine's sparse program's prefix)."""
     from fastdet_tpu_torch import bench
 
     staged = bench.stage_prepacked(eng, jpegs, thr_all)

@@ -25,6 +25,7 @@ once: the sustained cost of each. Every leg runs under
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 import time
 
@@ -68,8 +69,9 @@ def main(argv=None, device="cuda") -> int:
     try:
         jpegs = bench.make_jpegs(b)
         thr_all = np.asarray([0.1] * b, np.float32)
-        _, _, packed, thr, fn = probe_hostcpu.stage_prepacked(eng, jpegs,
-                                                              thr_all)
+        _, _, packed, thr, prefix = probe_hostcpu.stage_prepacked(
+            eng, jpegs, thr_all)
+        fn = functools.partial(eng._run_program, prefix)
         dev = eng.devices[0]
         put = eng._to_device
         print(f"row bytes: {packed.shape[1]} x b{b} = "

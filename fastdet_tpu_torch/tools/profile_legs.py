@@ -78,7 +78,7 @@ def main(argv=None, device="cuda") -> int:
         dev0 = eng.devices[0]
 
         def once():
-            res = fn(eng._to_device(packed, dev0))
+            res = eng._run_program(fn, eng._to_device(packed, dev0))
             return [t.cpu() for t in res]
 
         with torch.inference_mode():

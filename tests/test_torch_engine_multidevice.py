@@ -112,17 +112,17 @@ def test_dp_engine_input_actually_sharded(tiny416):
 
     multi, _ = tiny416
     seen = []
-    tail = multi._postprocess_tail
+    select = multi._select
 
     def spy(x, thresholds, shard=0):
         seen.append((shard, x.shape[0], threading.current_thread().name))
-        return tail(x, thresholds, shard)
+        return select(x, thresholds, shard)
 
-    multi._postprocess_tail = spy
+    multi._select = spy
     try:
         multi.detect(_imgs(8), [0.5] * 8)
     finally:
-        del multi._postprocess_tail
+        del multi._select
     assert sorted(s for s, _, _ in seen) == list(range(8))
     assert {b for _, b, _ in seen} == {1}
     assert {t.rsplit("_", 1)[0] for _, _, t in seen} == {

@@ -70,6 +70,43 @@ def test_postprocess_bitexact(seed, ties):
     assert res.count.min() > 0
 
 
+@pytest.mark.parametrize("arch", ["tiny", "full"])
+def test_head_anchors_made_once_decode_as_jax(arch):
+    """The anchors are made once per (anchors, device) and reused by
+    every forward (nothing uploaded from the host inside a CUDA graph);
+    the decode with them equals the one with anchors made per call bit
+    for bit, and the JAX package's decode as the test above holds it."""
+    from fastdet_tpu.ops import decode as jax_decode
+    from fastdet_tpu_torch.ops import decode
+
+    spec = yolov3.get_spec(arch, 80)
+    jspec = jax_yolov3.get_spec(arch, 80)
+    cpu = torch.device("cpu")
+    anchors = decode.head_anchors(spec, cpu)
+    assert decode.head_anchors(spec, cpu) is anchors
+    assert [a.tolist() for a in anchors] == [
+        [list(p) for p in a] for a in spec.anchors]
+    heads = _heads(3, spec, b=1)
+    th = [torch.from_numpy(h) for h in heads]
+    comps, scores, klass = decode.decode_all_components(th, spec)
+    per_call = [decode.decode_head_components(
+        h, torch.tensor(a, dtype=torch.float32), spec.num_classes,
+        spec.image_size) for h, a in zip(th, spec.anchors)]
+    for i in range(4):
+        torch.testing.assert_close(
+            comps[i], torch.cat([c[0][i] for c in per_call], 1),
+            rtol=0, atol=0)
+    torch.testing.assert_close(scores, torch.cat([c[1] for c in per_call],
+                                                 1), rtol=0, atol=0)
+    jcomps, jscores, jklass = jax_decode.decode_all_components(
+        [jnp.asarray(h[0]) for h in heads], jspec)
+    np.testing.assert_array_equal(klass[0].numpy(), np.asarray(jklass))
+    for a, b in zip(comps + (scores,), jcomps + (jscores,)):
+        w = np.asarray(b)
+        np.testing.assert_allclose(a[0].numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max())
+
+
 def test_tied_scores_keep_candidate_order():
     """Equal scores keep ascending candidate order (a stable top-K)."""
     from fastdet_tpu_torch.ops import decode

@@ -144,7 +144,7 @@ def test_prepack_dispatch_wire_equals_detect_async_sparse(int8_engine):
     assert eng.fetch_wire(res, 2) == want
     # the on-thread call of profile_legs / probe_rpc_split
     with torch.inference_mode():
-        res = fn(eng._to_device(packed, eng.devices[0]))
+        res = eng._run_program(fn, eng._to_device(packed, eng.devices[0]))
     assert eng.fetch_wire(res, 2) == want
 
 
